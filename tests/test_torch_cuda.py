@@ -13,6 +13,7 @@ import torch
 from tpu_mf.config import TrainConfig
 from tpu_mf.data.coo import synthetic_ratings
 from tpu_mf_torch.models.mf import params_from_numpy
+from tpu_mf_torch.ops import sgd_cells as tc
 from tpu_mf_torch.ops import sgd_dense as td
 from tpu_mf_torch.train import train_mf
 
@@ -73,5 +74,67 @@ def test_train_mf_on_gpu_runs_the_kernel(cuda):
     train_mf(cfg, tr, te, log=log.append, device=cuda)
     assert log[0].startswith("# dense-cell kernel from epoch 1"), log
     assert td.dense_epoch.launches == before + 3
+    rm = [float(x.split("tRMSE=")[1]) for x in log if "tRMSE=" in x]
+    assert np.all(np.isfinite(rm)) and rm[-1] < rm[0], rm
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dim", [40, 130])
+@pytest.mark.parametrize("groups", ["8/8", "adaptive"])
+@pytest.mark.parametrize("mxu,atol", [
+    # f32 working type: the same f32 terms, summed by atomics in another
+    # order; the error feeds through the later columns of the epoch
+    ("float32", 1e-4),
+    # bf16: a rounding of a row, of t*p or of err*p may flip where the f32
+    # value rounded differs in its last bit; one bf16 step of an update
+    ("bfloat16", 2e-3),
+])
+def test_cell_kernel_matches_reference(cuda, mxu, atol, groups, dim):
+    """cell_epoch against cell_epoch_reference on the card, saturating, with
+    ragged tiles (96 x 80), rows of one (dim 40) and two (dim 130) lane
+    groups, pinned and adaptive groups (eta small enough for windows of 2+
+    columns on both sides)."""
+    ds = synthetic_ratings(500, 400, 40000, rank=3, noise=0.3, seed=5,
+                           zipf=1.0, zipf_q=20.0)
+    tabs = np_tables(ds.nu, ds.nv, dim, seed=6, gb=3.0)
+    fixed = dict(theta_groups=8, phi_groups=8) if groups == "8/8" else {}
+    r = tc.CellEpochRunner(ds, tile_u=96, tile_v=80, batch=1024, seed=7,
+                           mxu=mxu, saturate=True, device=cuda, **fixed)
+    eta = 0.05 if groups == "8/8" else 0.2 / max(r._dup_max[2],
+                                                  r._vdup_max[2])
+    tg, pg = r.pick_theta_groups(eta), r.pick_phi_groups(eta)
+    if groups == "8/8":
+        assert (tg, pg) == (8, 8)
+    else:
+        assert max(tg, pg) <= 2, (tg, pg)
+    base = r.pad(params_from_numpy(*tabs, device=cuda))
+    ref = tuple(t.clone() for t in base)
+    before = tc.cell_epoch.launches
+    tc.cell_epoch_reference(*ref, r._dev[0], eta, 0.005, 3.0,
+                            max(1.0, 0.2 / eta), r.dim, tg, pg,
+                            r.work_dtype, True, r.mxu_pred)
+    r.epoch(base, eta, 0.005, 3.0)
+    torch.cuda.synchronize()
+    assert tc.cell_epoch.launches == before + 1
+    for a, b in zip(base, ref):
+        assert float((a - b).abs().max()) <= atol
+    start = r.pad(params_from_numpy(*tabs, device=cuda))
+    assert float((base[0] - start[0]).abs().max()) > 1e-3  # it trained
+
+
+@pytest.mark.cuda
+def test_train_mf_no_dense_runs_gen1(cuda):
+    """train_mf(use_dense=False) on a CUDA device runs the gen-1 kernel
+    from epoch 1, once per epoch, and the test RMSE falls."""
+    ds = synthetic_ratings(600, 400, 30000, rank=3, noise=0.2, seed=1)
+    tr, te = ds.split(0.1, seed=2)
+    cfg = TrainConfig(dim=64, iters=3, eta=0.005, use_dense=False,
+                      gb=tr.mean_rating())
+    log = []
+    before, dense_before = tc.cell_epoch.launches, td.dense_epoch.launches
+    train_mf(cfg, tr, te, log=log.append, device=cuda)
+    assert log[0].startswith("# gen-1 cell kernel: epochs 1..3"), log
+    assert tc.cell_epoch.launches == before + 3
+    assert td.dense_epoch.launches == dense_before
     rm = [float(x.split("tRMSE=")[1]) for x in log if "tRMSE=" in x]
     assert np.all(np.isfinite(rm)) and rm[-1] < rm[0], rm

@@ -11,7 +11,7 @@ import pytest
 import torch
 
 from tpu_mf.config import TrainConfig
-from tpu_mf.data.coo import synthetic_ratings
+from tpu_mf.data.coo import RatingsCOO, synthetic_ratings
 from tpu_mf.data.textfmt import write_raw
 from tpu_mf.io.checkpoint import load_mf_binary as jax_load_mf_binary
 from tpu_mf.io.checkpoint import save_mf_binary as jax_save_mf_binary
@@ -97,9 +97,138 @@ def test_fused_schedule_runs_batched_epochs_before_dense():
                                device="cpu")
     _train_mf_fused(cfg, tr, None, params, log.append,
                     _Observer(cfg, len(tr), log.append))
-    assert "# one-hot kernels (gen-1/packed/slot) not yet ported: epochs " \
-           "1..1 use the batched path" in log
+    assert ("# lane-packed and slot-major kernels (ops/pallas_sgd_packed.py, "
+            "ops/pallas_sgd_slot.py) not yet ported (ROADMAP Queue 1 item 5):"
+            " epochs 1..1 use the batched path") in log
     assert "# epoch 2: switching to DenseEpochRunner" in log
+
+
+def big_catalog():
+    """nv past pallas_eligible at dim 64 (fused item table > 64 MiB)."""
+    rng = np.random.default_rng(0)
+    return RatingsCOO(u=rng.integers(0, 200, 3000),
+                      v=rng.integers(0, 140_000, 3000),
+                      r=rng.uniform(1, 5, 3000), nu=200, nv=140_000)
+
+
+# name: (dataset, TrainConfig options, the port's expected log line)
+SCHEDULES = {
+    "dim64_no_dense": (lambda: data()[0], dict(dim=64, use_dense=False),
+                       "# gen-1 cell kernel: epochs 1..3"),
+    "dim128_no_dense": (lambda: data()[0], dict(dim=128, use_dense=False),
+                        "# gen-1 cell kernel: epochs 1..3"),
+    "dim64_gen1_then_dense": (lambda: data()[0],
+                              dict(dim=64, eta=0.04, gam=2.0),
+                              "# gen-1 cell kernel: epochs 1..1"),
+    "dim8_packed_slot": (lambda: data()[0], dict(dim=8, eta=0.04, gam=2.0),
+                         "# lane-packed and slot-major kernels"),
+    "item_sharded": (big_catalog, dict(dim=64),
+                     "# item-sharded kernel (ops/phi_shard.py) not yet "
+                     "ported (ROADMAP Queue 1 item 6): epochs 1..3 use the "
+                     "batched path"),
+}
+# runner families: what tpu_mf runs, and what the port runs in its place
+KINDS = {"PallasEpochRunner": "gen-1", "CellEpochRunner": "gen-1",
+         "DenseEpochRunner": "dense", "PackedEpochRunner": "batched",
+         "SlotEpochRunner": "batched", "PhiShardedRunner": "batched",
+         "BatchedRunner": "batched"}
+
+
+def phases(sched):
+    """[(first epoch, family, tile_u, tile_v, batch)], consecutive phases of
+    one family merged (tpu_mf's packed -> slot ladder is one batched phase
+    in the port)."""
+    out = []
+    for ep, r in sched:
+        kind = KINDS[type(r).__name__]
+        if out and out[-1][1] == kind:
+            continue
+        geom = ((None,) * 3 if kind == "batched" else
+                (r.tile_u, r.tile_v, getattr(r, "batch", None)))
+        out.append((ep, kind) + geom)
+    return out
+
+
+@pytest.mark.parametrize("case", sorted(SCHEDULES))
+def test_schedule_matches_tpu_mf(case):
+    """_mf_runner_schedule on CPU tensors picks tpu_mf's runner family,
+    engagement epochs and geometry, including the pallas_eligible test
+    that comes before dense (item-sharded catalogs)."""
+    from tpu_mf.train.loop import _mf_runner_schedule as jax_schedule
+    from tpu_mf_torch.train.loop import _mf_runner_schedule
+
+    make, opts, line = SCHEDULES[case]
+    ds = make()
+    cfg = TrainConfig(iters=3, gb=3.0, **opts)
+    tabs = np_tables(ds.nu, ds.nv, cfg.dim, cfg.gb)
+    want = jax_schedule(cfg, ds, JaxParams(*(jnp.asarray(t) for t in tabs)),
+                        lambda _: None)
+    log = []
+    got = _mf_runner_schedule(cfg, ds, params_from_numpy(*tabs, device="cpu"),
+                              log.append)
+    assert phases(got) == phases(want)
+    assert any(x.startswith(line) for x in log), log
+
+
+def jax_loop(runners, tabs, cfg):
+    """tpu_mf's fused loop over given (first epoch, runner) phases."""
+    (_, runner), upcoming = runners[0], list(runners[1:])
+    tables = runner.pad(JaxParams(*(jnp.asarray(t) for t in tabs)))
+    for it in range(1, cfg.iters + 1):
+        if upcoming and it >= upcoming[0][0]:
+            nxt = upcoming.pop(0)[1]
+            tables = nxt.pad(runner.trim(tables))
+            runner = nxt
+        tables = runner.epoch(tables, cfg.eta_at(it), cfg.lam, float(cfg.gb),
+                              epoch_idx=it)
+    return [np.asarray(x) for x in runner.trim(tables)[:4]]
+
+
+def jax_gen1(tr, cfg):
+    from tpu_mf.ops.pallas_sgd import PallasEpochRunner, pick_cell_geometry
+
+    tu, tv, b = pick_cell_geometry(tr)
+    return PallasEpochRunner(tr, tile_u=tu, tile_v=tv, batch=b, seed=cfg.seed,
+                             n_plans=2, balance=True, saturate=True,
+                             mxu="float32", interpret=True)
+
+
+def test_fused_gen1_schedule_on_cpu_matches_pallas_loop():
+    """_train_mf_fused at dim 64 with use_dense=False on CPU tensors (the
+    gen-1 epoch's plain version, f32, two rotated plans) against tpu_mf's
+    interpret-mode PallasEpochRunner with the same eta_at, lam and gb:
+    tables within 1e-4 after 3 epochs (f32 sums in other orders, over 3
+    epochs of tpu_mf's 2e-5 per-epoch tolerance)."""
+    tr, te = data()
+    cfg = TrainConfig(dim=64, iters=3, use_dense=False, gb=tr.mean_rating())
+    tabs = np_tables(tr.nu, tr.nv, 64, cfg.gb)
+    log = []
+    got = _train_mf_fused(cfg, tr, te, params_from_numpy(*tabs, device="cpu"),
+                          log.append, _Observer(cfg, len(tr), log.append))
+    assert log[0].startswith("# gen-1 cell kernel: epochs 1..3"), log
+    want = jax_loop([(1, jax_gen1(tr, cfg))], tabs, cfg)
+    for a, b in zip(params_to_numpy(got)[:4], want):
+        np.testing.assert_allclose(a, b, rtol=0, atol=1e-4)
+    rm = trmse(log)
+    assert len(rm) == 3 and np.all(np.isfinite(rm)) and rm[-1] < rm[0]
+
+
+def test_gen1_to_dense_handover_matches_pallas_loop():
+    """gen-1 carries epoch 1, dense engages at epoch 2: the handover goes
+    through trim (inverting the balance maps) and dense's pad. Against the
+    same phases of tpu_mf's interpret-mode runners: tables within 1e-4."""
+    tr, te = data()
+    cfg = TrainConfig(dim=64, iters=3, eta=0.04, gam=2.0, gb=tr.mean_rating())
+    tabs = np_tables(tr.nu, tr.nv, 64, cfg.gb)
+    log = []
+    got = _train_mf_fused(cfg, tr, te, params_from_numpy(*tabs, device="cpu"),
+                          log.append, _Observer(cfg, len(tr), log.append))
+    assert "# epoch 2: switching to DenseEpochRunner" in log, log
+    dense = JaxDenseRunner(tr, seed=0, saturate=True, dim=64, mxu="float32",
+                           interpret=True)
+    want = jax_loop([(1, jax_gen1(tr, cfg)), (2, dense)], tabs, cfg)
+    for a, b in zip(params_to_numpy(got)[:4], want):
+        np.testing.assert_allclose(a, b, rtol=0, atol=1e-4)
 
 
 def write_data(tmp_path):

@@ -1,0 +1,311 @@
+// Gen-1 cell-plan SGD epoch for Hopper (sm_90a).
+//
+// Replaces tpu_mf/ops/pallas_sgd.py:_epoch_kernel. A plan batch holds 8
+// sub-batch columns of B/8 rating slots; all columns of a batch share one
+// user tile gu[i], and column k has its own item tile gv[i][k]. Batches run
+// in plan order, and inside a batch the columns run in order. Rows are the
+// fused homogeneous rows of ops/rows.py (theta = [fac | bu | 1 | cnt],
+// phi = [fac | 1 | bv | cnt]), so per rating
+//
+//     pred = t . p + gb,   err = eta * w * (r - pred)
+//     dtheta[u] += err * p,   dphi[v] += err * t,   cnt lane (dim + 2) += w
+//
+// Windows. User deltas sum over a theta group of 8 / theta_groups columns
+// and apply at its end; item deltas sum over a phi group of 8 / phi_groups
+// columns into a phi-shaped scratch `acc`, and each item tile applies at the
+// last column of the group that touches it (the plan's `ap` flags). Every
+// column reads theta and phi as they stood at the start of its groups, and
+// nothing is written inside a group, so the columns between two group ends
+// are independent: they run as one "window step". At an apply a row touched
+// k times becomes
+//
+//     row * (1 + keep * (exp(k ln(1 - eta lam)) - 1)) + keep * d * s,
+//     s = min(1, cap / max(k, 1)) when saturating, else 1,
+//
+// with keep = lane <= dim (theta) or lane < dim | lane == dim + 1 (phi): the
+// one-lanes stay 1 and the count lane 0. Rows untouched in the window (k = 0)
+// are left alone, which is the same result.
+//
+// Rounding follows the TPU kernel in the bf16 working type: rows are rounded
+// to bf16 before the gather, t*p is rounded before the f32 row sum when the
+// TPU does its prediction on the MXU (mxu_pred, at most 2 lane groups), and
+// the scatter operands err*p and err*t are rounded; every sum is f32. The f32
+// working type rounds nothing.
+//
+// Design. The TPU runs the batches as a sequential grid on one core; here
+// one cooperative launch runs the whole epoch on one block of 32 warps per
+// SM. Each window step is a scatter phase (one warp per rating slot: gather
+// both rows, warp-reduce the prediction, f32 atomics of the deltas into
+// `dtheta`, one user tile, and `acc`), a grid-wide sync, and where a group
+// ends an apply phase (one warp per row of the user tile and of the item
+// tiles that apply) and a second sync. Rows and deltas change between
+// phases on other SMs, so they are read through L2 (ld.global.cg), never a
+// stale L1 line. Atomics sum in no fixed order, so the kernel matches its
+// plain version to a tolerance.
+//
+// What bounds it on the H100. Per rating the work is two row reads and
+// 2 * (dim + 3) atomic adds: ~0.5 KB of L2 traffic at dim 64, so a 9M-rating
+// epoch moves a few GB, milliseconds at L2 rates. But at ML-10M shape the
+// window duplicates of zipfy heads keep 8 groups a side (fully sequential)
+// at every eta from 0.02 down to 0.0015: an epoch is ~1.4k batches x 8
+// column steps, each only B/8 = 1024 slots wide, each with two grid syncs.
+// Latency bounds it: a step waits on its row reads and its atomics, an apply
+// on its row reads and writes, and each sync on the slowest warp. A warp
+// loads its slot of the next step before the sync, so a step waits on one
+// round trip before its atomics. Fewer groups (a smaller eta, flatter data)
+// mean wider steps and fewer syncs.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include <cooperative_groups.h>
+
+namespace cg = cooperative_groups;
+
+namespace {
+
+constexpr int kWarps = 32;      // warps per block of the persistent kernel
+constexpr int kCached = 4;      // 32-lane row chunks held in registers (dim <= 125)
+
+template <bool kBF16>
+__device__ __forceinline__ float to_work(float x) {
+  if constexpr (kBF16)
+    return __bfloat162float(__float2bfloat16_rn(x));
+  else
+    return x;
+}
+
+// Rows and deltas change between phases on other SMs: read them from L2.
+__device__ __forceinline__ float ld(const float* p) { return __ldcg(p); }
+
+// One rating slot of the plan: weight, rating, tile-local ids, item tile.
+struct Slot {
+  float w, r;
+  int u, v, gv;
+};
+
+__device__ __forceinline__ Slot load_slot(const int* u, const int* v,
+                                          const float* r, const float* w,
+                                          const int* gv, int col,
+                                          long long slot) {
+  return Slot{w[slot], r[slot], u[slot], v[slot], gv[col]};
+}
+
+// One slot, one warp: gather both rows, predict, scatter the deltas. The
+// first kCached 32-lane chunks of both rows stay in registers.
+template <bool kBF16, bool kMxuPred>
+__device__ __forceinline__ void step_slot(
+    const float* theta, const float* phi, const Slot& sl, int gut,
+    float* dtheta, float* acc, int tile_u, int tile_v, int lanes, int dim,
+    float eta, float gb, int lane) {
+  const float wk = sl.w, rk = sl.r;
+  const int ul = sl.u, vl = sl.v, gvt = sl.gv;
+  if (wk == 0.f) return;  // padded slot (sentinel ids): contributes nothing
+  const float* tr = theta + ((long long)gut * tile_u + ul) * lanes;
+  const long long vrow = (long long)gvt * tile_v + vl;
+  const float* pr = phi + vrow * lanes;
+  const int n = dim + 2;  // lanes >= dim + 2 are zero in both rows
+  float tc[kCached], pc[kCached];
+  float part = 0.f;
+#pragma unroll
+  for (int j = 0; j < kCached; ++j) {
+    const int l = lane + 32 * j;
+    tc[j] = l < n ? to_work<kBF16>(ld(tr + l)) : 0.f;
+    pc[j] = l < n ? to_work<kBF16>(ld(pr + l)) : 0.f;
+  }
+#pragma unroll
+  for (int j = 0; j < kCached; ++j)
+    part += kMxuPred ? to_work<kBF16>(tc[j] * pc[j]) : tc[j] * pc[j];
+  for (int l = lane + 32 * kCached; l < n; l += 32) {
+    const float t = to_work<kBF16>(ld(tr + l)), p = to_work<kBF16>(ld(pr + l));
+    part += kMxuPred ? to_work<kBF16>(t * p) : t * p;
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) part += __shfl_xor_sync(0xffffffffu, part, o);
+  const float err = (eta * wk) * (rk - (part + gb));
+  // each side's one-lane takes the other side's bias term, which its apply
+  // never reads: skip those two adds
+  float* du = dtheta + (long long)ul * lanes;
+  float* dv = acc + vrow * lanes;
+#pragma unroll
+  for (int j = 0; j < kCached; ++j) {
+    const int l = lane + 32 * j;
+    if (l >= n) break;
+    if (l != dim + 1) atomicAdd(du + l, to_work<kBF16>(err * pc[j]));
+    if (l != dim) atomicAdd(dv + l, to_work<kBF16>(err * tc[j]));
+  }
+  for (int l = lane + 32 * kCached; l < n; l += 32) {
+    const float t = to_work<kBF16>(ld(tr + l)), p = to_work<kBF16>(ld(pr + l));
+    if (l != dim + 1) atomicAdd(du + l, to_work<kBF16>(err * p));
+    if (l != dim) atomicAdd(dv + l, to_work<kBF16>(err * t));
+  }
+  if (lane == 0) {  // counts: the count lane of both rows is zero, so w
+    atomicAdd(du + dim + 2, wk);
+    atomicAdd(dv + dim + 2, wk);
+  }
+}
+
+// Decay one table row and add its window delta (saturated), then clear the
+// delta. The count and the first kCached chunks arrive in one round trip.
+__device__ __forceinline__ void apply_row(float* tr, float* dr, bool user,
+                                          int dim, float ln_decay, float cap,
+                                          int saturate, int lane) {
+  const int n = dim + 3;
+  const float k = ld(dr + dim + 2);
+  float dc[kCached], rc[kCached];
+#pragma unroll
+  for (int j = 0; j < kCached; ++j) {
+    const int l = lane + 32 * j;
+    dc[j] = l < n ? ld(dr + l) : 0.f;
+    rc[j] = l < n ? ld(tr + l) : 0.f;
+  }
+  __syncwarp();  // every lane has read k before lane (dim + 2) % 32 clears it
+  if (k == 0.f) return;  // untouched in this window
+  const float dec = expf(k * ln_decay);
+  const float sat = saturate ? fminf(1.f, cap / fmaxf(k, 1.f)) : 1.f;
+#pragma unroll
+  for (int j = 0; j < kCached; ++j) {
+    const int l = lane + 32 * j;
+    if (l >= n) break;
+    const bool keep = user ? l <= dim : (l < dim || l == dim + 1);
+    if (keep) tr[l] = rc[j] * (1.f + (dec - 1.f)) + (saturate ? dc[j] * sat : dc[j]);
+    dr[l] = 0.f;
+  }
+  for (int l = lane + 32 * kCached; l < n; l += 32) {
+    const bool keep = user ? l <= dim : (l < dim || l == dim + 1);
+    if (keep) {
+      float dl = ld(dr + l);
+      if (saturate) dl = dl * sat;
+      tr[l] = ld(tr + l) * (1.f + (dec - 1.f)) + dl;
+    }
+    dr[l] = 0.f;
+  }
+}
+
+struct EpochArgs {
+  float* theta; float* phi; const int* u; const int* v; const float* r;
+  const float* w; const int* gu; const int* gv; const int* ap; float* dtheta;
+  float* acc; int nb, sub, tile_u, tile_v, lanes, dim, tg_w, pg_w, saturate;
+  float eta, gb, cap, ln_decay;
+};
+
+// One epoch in one cooperative launch: every window step is a scatter
+// phase over all slots of its columns, a grid-wide sync, and (where a group
+// ends) an apply phase over the rows of the tiles that apply, then a sync.
+template <bool kBF16, bool kMxuPred>
+__global__ void __launch_bounds__(32 * kWarps)
+cell_epoch_kernel(EpochArgs a) {
+  cg::grid_group grid = cg::this_grid();
+  const int lane = threadIdx.x % 32;
+  const int gwarp = blockIdx.x * kWarps + threadIdx.x / 32;
+  const int n_warps = gridDim.x * kWarps;
+  const int step = a.tg_w < a.pg_w ? a.tg_w : a.pg_w;
+  // when a step has at most one slot per warp, each warp loads its slot of
+  // the next step before the grid syncs, so a step waits only on its rows
+  Slot next{};
+  bool have_next = false;
+  for (int i = 0; i < a.nb; ++i) {
+    const int gut = a.gu[i];
+    for (int c0 = 0; c0 < 8; c0 += step) {
+      const int width = step * a.sub;
+      for (int q = gwarp; q < width; q += n_warps) {
+        const int col = i * 8 + c0 + q / a.sub;
+        const Slot sl = have_next && q == gwarp
+            ? next : load_slot(a.u, a.v, a.r, a.w, a.gv, col,
+                               (long long)col * a.sub + q % a.sub);
+        step_slot<kBF16, kMxuPred>(a.theta, a.phi, sl, gut, a.dtheta, a.acc,
+                                   a.tile_u, a.tile_v, a.lanes, a.dim, a.eta,
+                                   a.gb, lane);
+      }
+      const int ni = c0 + step < 8 ? i : i + 1;
+      const int nc = c0 + step < 8 ? c0 + step : 0;
+      have_next = ni < a.nb && gwarp < width && width <= n_warps;
+      if (have_next) {
+        const int col = ni * 8 + nc + gwarp / a.sub;
+        next = load_slot(a.u, a.v, a.r, a.w, a.gv, col,
+                         (long long)col * a.sub + gwarp % a.sub);
+      }
+      grid.sync();
+      const int end = c0 + step;
+      const int n_pc = end % a.pg_w == 0 ? a.pg_w : 0;
+      const int n_th = end % a.tg_w == 0 ? 1 : 0;
+      if (n_pc + n_th == 0) continue;
+      const int total = n_pc * a.tile_v + n_th * a.tile_u;
+      for (int q = gwarp; q < total; q += n_warps) {
+        const bool user = q >= n_pc * a.tile_v;
+        float* tab;
+        float* d;
+        if (user) {
+          const int row = q - n_pc * a.tile_v;
+          tab = a.theta + ((long long)gut * a.tile_u + row) * a.lanes;
+          d = a.dtheta + (long long)row * a.lanes;
+        } else {
+          const int col = i * 8 + end - a.pg_w + q / a.tile_v;
+          if (a.ap[col] == 0) continue;
+          const long long off =
+              ((long long)a.gv[col] * a.tile_v + q % a.tile_v) * a.lanes;
+          tab = a.phi + off;
+          d = a.acc + off;
+        }
+        apply_row(tab, d, user, a.dim, a.ln_decay, a.cap, a.saturate, lane);
+      }
+      grid.sync();
+    }
+  }
+}
+
+template <bool kBF16, bool kMxuPred>
+int run_epoch(const EpochArgs& args, cudaStream_t stream) {
+  auto kernel = cell_epoch_kernel<kBF16, kMxuPred>;
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        32 * kWarps, 0);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+  EpochArgs a = args;
+  void* params[] = {&a};
+  // one block per SM: 32 warps a block cover the 1024-slot steps of the
+  // ML-10M geometry at one slot a warp (fewer blocks measured no faster)
+  err = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(kernel), dim3(sms),
+                                    dim3(32 * kWarps), params, 0, stream);
+  return static_cast<int>(err);
+}
+
+bool valid_groups(int g) { return g == 1 || g == 2 || g == 4 || g == 8; }
+
+}  // namespace
+
+// One gen-1 epoch, in place on theta/phi, launched on `stream`. The plan
+// arrays u, v, r, w are (nb, 8, sub), one column contiguous; gu (nb), gv and
+// ap (nb, 8). dtheta (tile_u x lanes) and acc (phi's shape) must be zero on
+// entry and are zero again on return. work: 0 = f32, 1 = bf16. Returns 0 or
+// the CUDA error code.
+extern "C" int tmf_cell_epoch(void* theta, void* phi, const void* u,
+                              const void* v, const void* r, const void* w,
+                              const void* gu, const void* gv, const void* ap,
+                              void* dtheta, void* acc, int nb, int sub,
+                              int tile_u, int tile_v, int lanes, int dim,
+                              int theta_groups, int phi_groups, int work,
+                              int mxu_pred, int saturate, float eta, float lam,
+                              float gb, float cap, void* stream) {
+  if (!valid_groups(theta_groups) || !valid_groups(phi_groups) ||
+      dim + 3 > lanes || sub <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  EpochArgs a{static_cast<float*>(theta), static_cast<float*>(phi),
+              static_cast<const int*>(u), static_cast<const int*>(v),
+              static_cast<const float*>(r), static_cast<const float*>(w),
+              static_cast<const int*>(gu), static_cast<const int*>(gv),
+              static_cast<const int*>(ap), static_cast<float*>(dtheta),
+              static_cast<float*>(acc), nb, sub, tile_u, tile_v, lanes, dim,
+              8 / theta_groups, 8 / phi_groups, saturate, eta, gb, cap,
+              logf(1.f - eta * lam)};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (work == 0) return run_epoch<false, false>(a, st);
+  if (mxu_pred) return run_epoch<true, true>(a, st);
+  return run_epoch<true, false>(a, st);
+}

@@ -39,22 +39,37 @@ def _nvcc() -> str:
     return found
 
 
+def build_all(names) -> list[Path]:
+    """Compile each ``csrc/<name>.cu`` that has no up-to-date library, one
+    nvcc process per source, all started together."""
+    jobs = []
+    for name in names:
+        src = CSRC / f"{name}.cu"
+        key = src.read_bytes() + " ".join(NVCC_FLAGS).encode()
+        out = BUILD_DIR / f"{name}-{hashlib.sha256(key).hexdigest()[:12]}.so"
+        proc = tmp = None
+        if not out.exists():
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+            proc = subprocess.Popen(
+                [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        jobs.append((name, src, out, tmp, proc))
+    # wait for every process before raising, so none outlives a failure
+    errs = [proc.communicate()[1] if proc else "" for *_, proc in jobs]
+    for (name, src, out, tmp, proc), err in zip(jobs, errs):
+        if proc is None:
+            continue
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {src.name}:\n{err}")
+        build_logs[name] = err
+        os.replace(tmp, out)
+    return [out for _, _, out, _, _ in jobs]
+
+
 def build(name: str) -> Path:
     """Compile ``csrc/<name>.cu`` unless an up-to-date library exists."""
-    src = CSRC / f"{name}.cu"
-    key = src.read_bytes() + " ".join(NVCC_FLAGS).encode()
-    out = BUILD_DIR / f"{name}-{hashlib.sha256(key).hexdigest()[:12]}.so"
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {src.name}:\n{proc.stderr}")
-    build_logs[name] = proc.stderr
-    os.replace(tmp, out)
-    return out
+    return build_all([name])[0]
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -8,12 +8,16 @@ Homogeneous rows fold the biases into the tile products:
 
 so theta_row . phi_row = theta.phi + bu + bv. Rows are ``row_lanes(dim)``
 wide; pad rows (beyond nu / nv) are all zero.
+
+Optional id maps (``balance_cells`` in ``ops/sgd_cells.py``) are
+new-of-old: row i of the model lives at table row ``idmap[i]``.
 """
 
 from __future__ import annotations
 
 from typing import Tuple
 
+import numpy as np
 import torch
 
 from tpu_mf_torch.models.mf import MFParams
@@ -34,33 +38,46 @@ def cdiv(a: int, b: int) -> int:
 
 
 def fuse_rows(fac: torch.Tensor, bias: torch.Tensor, rows: int, lanes: int,
-              side: str) -> torch.Tensor:
+              side: str, idmap: np.ndarray | None = None) -> torch.Tensor:
     """(rows, lanes) float32 fused table; side "u" is [fac | bias | 1],
-    side "v" is [fac | 1 | bias]."""
+    side "v" is [fac | 1 | bias]. With ``idmap``, row i goes to table row
+    ``idmap[i]``."""
     n, dim = fac.shape
-    ext = torch.zeros(rows, lanes, dtype=torch.float32, device=fac.device)
-    ext[:n, :dim] = fac
+    out = torch.zeros(rows, lanes, dtype=torch.float32, device=fac.device)
+    at = (slice(0, n) if idmap is None
+          else torch.as_tensor(idmap, dtype=torch.int64).to(fac.device))
     b_lane, one_lane = (dim, dim + 1) if side == "u" else (dim + 1, dim)
-    ext[:n, b_lane] = bias
-    ext[:n, one_lane] = 1.0
-    return ext
+    out[at, :dim] = fac
+    out[at, b_lane] = bias
+    out[at, one_lane] = 1.0
+    return out
 
 
-def pad_params(params: MFParams, rows_u: int,
-               rows_v: int) -> Tuple[torch.Tensor, torch.Tensor]:
+def pad_params(params: MFParams, rows_u: int, rows_v: int,
+               map_u: np.ndarray | None = None,
+               map_v: np.ndarray | None = None
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Fused (theta_ext, phi_ext) tables padded to rows_u / rows_v rows."""
     lanes = row_lanes(params.theta.shape[1])
-    return (fuse_rows(params.theta, params.bu, rows_u, lanes, "u"),
-            fuse_rows(params.phi, params.bv, rows_v, lanes, "v"))
+    return (fuse_rows(params.theta, params.bu, rows_u, lanes, "u", map_u),
+            fuse_rows(params.phi, params.bv, rows_v, lanes, "v", map_v))
 
 
 def split_params(theta_ext: torch.Tensor, phi_ext: torch.Tensor, nu: int,
-                 nv: int, dim: int, gb) -> MFParams:
-    """MFParams views of fused tables (inverse of ``pad_params``)."""
+                 nv: int, dim: int, gb, map_u: np.ndarray | None = None,
+                 map_v: np.ndarray | None = None) -> MFParams:
+    """MFParams of fused tables (inverse of ``pad_params``): views without
+    maps, gathered copies with them."""
+    def rows(ext, idmap):
+        if idmap is None:
+            return ext
+        return ext[torch.as_tensor(idmap, dtype=torch.int64).to(ext.device)]
+
+    th, ph = rows(theta_ext, map_u), rows(phi_ext, map_v)
     return MFParams(
-        theta=theta_ext[:nu, :dim],
-        phi=phi_ext[:nv, :dim],
-        bu=theta_ext[:nu, dim],
-        bv=phi_ext[:nv, dim + 1],
+        theta=th[:nu, :dim],
+        phi=ph[:nv, :dim],
+        bu=th[:nu, dim],
+        bv=ph[:nv, dim + 1],
         gb=torch.as_tensor(gb, dtype=torch.float32, device=theta_ext.device),
     )

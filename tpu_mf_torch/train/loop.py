@@ -5,10 +5,11 @@ Each epoch prints the reference's line (src/mf.h:35):
 
     iter#<n>\t<elapsed>\ttRMSE=<rmse>
 
-Routing mirrors ``tpu_mf``: with ``cfg.use_pallas`` on a CUDA device the
-fused kernel schedule runs (``_train_mf_fused``); otherwise every epoch is
-the batched ``sgd_epoch``. Ratings are shuffled on the host
-(``epoch_batches``), as ``tpu_mf`` does with ``device_shuffle=False``.
+Routing mirrors ``tpu_mf``: with ``cfg.use_pallas`` on a CUDA device (and
+dim <= MAX_DIM) the fused kernel schedule runs (``_train_mf_fused``);
+otherwise every epoch is the batched ``sgd_epoch``. Ratings are shuffled on
+the host (``epoch_batches``), as ``tpu_mf`` does with
+``device_shuffle=False``.
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ import torch
 from tpu_mf.config import TrainConfig
 from tpu_mf.data.coo import RatingsCOO, epoch_batches
 from tpu_mf_torch.models.mf import MFParams, init_mf, rmse
+from tpu_mf_torch.ops.rows import MAX_DIM
 from tpu_mf_torch.ops.sgd import sgd_epoch
 from tpu_mf_torch.train.metrics import MetricsLogger, profile_trace
 
@@ -127,8 +129,11 @@ def train_mf(
     try:
         with obs.trace():
             if cfg.use_pallas and device.type == "cuda":
-                return _train_mf_fused(cfg, train_ds, test_ds, params, log,
-                                       obs)
+                if cfg.dim <= MAX_DIM:
+                    return _train_mf_fused(cfg, train_ds, test_ds, params,
+                                           log, obs)
+                log(f"# dim {cfg.dim} > {MAX_DIM}: no fused kernel; using "
+                    "the batched path")
             sched = [(1, BatchedRunner(train_ds, cfg.batch_size, cfg.seed))]
             return _run_schedule(cfg, sched, test_ds, params, log, obs)
     finally:
@@ -139,10 +144,20 @@ def _mf_runner_schedule(cfg, train_ds, params, log, start=0):
     """Epoch-indexed schedule ``[(first_epoch, runner), ...]``; each runner
     serves epochs [first_epoch, next phase's first_epoch).
 
-    The dense-cell runner engages where ``tpu_mf``'s schedule engages it.
-    The one-hot kernels that ``tpu_mf`` runs before that (or instead, when
-    dense is ineligible) are not ported yet: those epochs run the batched
-    ``sgd_epoch``, as ``tpu_mf --no-pallas`` does."""
+    The decision tree of ``tpu_mf``'s schedule, in its order:
+    1. an item table past ``pallas_eligible``: ``tpu_mf`` shards it
+       (``ops/phi_shard.py``, not ported: the batched path runs);
+    2. the dense-cell runner, from its engagement epoch;
+    3. dims the lane-packed / slot-major kernels take (not ported: the
+       batched path runs until dense engages);
+    4. otherwise the gen-1 cell runner until dense engages.
+    On a CUDA device the kernels work in bf16, on the CPU in f32."""
+    from tpu_mf_torch.ops.routing import packed_eligible, slot_eligible
+    from tpu_mf_torch.ops.sgd_cells import (
+        CellEpochRunner,
+        pallas_eligible,
+        pick_cell_geometry,
+    )
     from tpu_mf_torch.ops.sgd_dense import (
         DenseEpochRunner,
         dense_eligible,
@@ -150,14 +165,19 @@ def _mf_runner_schedule(cfg, train_ds, params, log, start=0):
     )
 
     device = params.theta.device
+    work = "bfloat16" if device.type == "cuda" else "float32"
+    n_plans = 2 if cfg.iters > 1 else 1  # between-epoch reshuffling
     batched = BatchedRunner(train_ds, cfg.batch_size, cfg.seed)
+    if not pallas_eligible(params, cfg.batch_size):
+        log(f"# item-sharded kernel (ops/phi_shard.py) not yet ported "
+            f"(ROADMAP Queue 1 item 6): epochs {start + 1}..{cfg.iters} use "
+            "the batched path")
+        return [(start + 1, batched)]
+
     dense_from = None
     if cfg.use_dense and dense_eligible(params, train_ds):
-        # bf16 storage and operands on the GPU; f32 keeps CPU runs exact
-        dense_r = DenseEpochRunner(
-            train_ds, saturate=True, dim=cfg.dim, device=device,
-            mxu="bfloat16" if device.type == "cuda" else "float32",
-        )
+        dense_r = DenseEpochRunner(train_ds, saturate=True, dim=cfg.dim,
+                                   device=device, mxu=work)
         dense_from = dense_engage_epoch(cfg.eta_at, cfg.iters, cfg.dim,
                                         dense_r.plan, start)
         if dense_from == start + 1:
@@ -168,13 +188,27 @@ def _mf_runner_schedule(cfg, train_ds, params, log, start=0):
             log(f"# dense-cell kernel engages at epoch {dense_from} "
                 f"(eta {cfg.eta_at(dense_from):g}, k_cells "
                 f"{dense_r.k_cells})")
+
+    def with_dense(runner):
+        sched = [(start + 1, runner)]
+        return sched if dense_from is None else sched + [(dense_from, dense_r)]
+
     last = cfg.iters if dense_from is None else dense_from - 1
-    log(f"# one-hot kernels (gen-1/packed/slot) not yet ported: epochs "
-        f"{start + 1}..{last} use the batched path")
-    sched = [(start + 1, batched)]
-    if dense_from is not None:
-        sched.append((dense_from, dense_r))
-    return sched
+    if (slot_eligible(params, cfg.batch_size)
+            or packed_eligible(params, cfg.batch_size)):
+        log(f"# lane-packed and slot-major kernels (ops/pallas_sgd_packed.py, "
+            f"ops/pallas_sgd_slot.py) not yet ported (ROADMAP Queue 1 item "
+            f"5): epochs {start + 1}..{last} use the batched path")
+        return with_dense(batched)
+
+    # tpu_mf picks this geometry at every dim that reaches here
+    tu, tv, b = pick_cell_geometry(train_ds)
+    runner = CellEpochRunner(train_ds, tile_u=tu, tile_v=tv, batch=b,
+                             seed=cfg.seed, n_plans=n_plans, balance=True,
+                             saturate=True, mxu=work, device=device)
+    log(f"# gen-1 cell kernel: epochs {start + 1}..{last}, tiles {tu}x{tv}, "
+        f"batch {b}, {n_plans} plan(s) of {runner.plan.u.shape[0]} batches")
+    return with_dense(runner)
 
 
 def _train_mf_fused(cfg, train_ds, test_ds, params, log, obs,
