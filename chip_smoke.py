@@ -19,11 +19,31 @@ Phases (each prints its own lines; any failure exits non-zero):
   4. the gen-1 path: the same run with ``use_dense=False`` (``--no-dense``):
      the gen-1 kernel must carry every epoch and the dense kernel none, and
      tRMSE must fall; then its epochs timed as in phase 3;
-  5. the {result}_3 checkpoint written, read back and checked.
+  5. the {result}_3 checkpoint written, read back and checked;
+  6. the rank-8 path with dense on: ``train_mf`` at dim 8, 3 epochs: the
+     lane-packed runner must carry epochs 1-2 and dense epoch 3;
+  7. the rank-8 ladder: ``train_mf`` at dim 8 with ``use_dense=False``, 11
+     epochs: the packed runner, then at least one slot runner, must carry
+     epochs (launches counted per runner family), and tRMSE must fall;
+  8. the packed and slot window plans against the plain version on the
+     card at the geometry phase 7's schedule picked (tiles, batch, every
+     slot sub, plain and striped), on 6x6 tiles at ML-10M density, both
+     working types, at 8/8 groups and at an eta whose windows span 2+
+     columns;
+  9. phase 7's run replayed with the plain version: the same schedule
+     (``_mf_runner_schedule``) from the same initial tables, every epoch
+     through ``cell_epoch_reference`` with handovers through trim/pad; the
+     final tables must agree with train_mf's, each table's difference must
+     be small beside how far training moved it, and the tRMSE must agree;
+ 10. one full epoch of each phase of that schedule (packed at epoch 1,
+     each slot phase at its first epoch), plain version, kernel, kernel,
+     plain version from the same initial tables, timed with CUDA events
+     and held to each other as in phase 9.
 
-The last lines are the kernels' JSON summary, the card's name and power
-limit, and {"ok": true, "device": {...}}. Imports no JAX. Plans are built
-anew (``TPU_MF_PLAN_CACHE=0``): nothing is written outside the checkout.
+The last lines are the kernels' JSON summary (time, launches on the main
+path, bound), the card's name and power limit, and {"ok": true, "device":
+{...}}. Imports nothing of JAX or of tpu_mf. Plans are built anew
+(``TPU_MF_PLAN_CACHE=0``): nothing is written outside the checkout.
 """
 
 from __future__ import annotations
@@ -31,14 +51,19 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
 import time
+import warnings
 
 DEVICE = "cuda"
 N_USERS, N_ITEMS, N_RATINGS = 69_878, 10_677, 10_000_000
 DIM, EPOCHS = 64, 3
+# the rank-8 runs: dense on (packed, then dense from epoch 3), and the
+# --no-dense ladder, long enough for the slot envelope to clear
+DIM8, LADDER_EPOCHS = 8, 11
 # tolerances of the kernel against its plain version (phase 2):
 #   float32: the same f32 products summed in another order;
 #   bfloat16: the two sides round E to bf16 from f32 values that may differ
@@ -53,17 +78,66 @@ ATOL_CELL = {"float32": 1e-4, "bfloat16": 2e-3}
 # phase 4: 3 full ML-10M-shape gen-1 epochs, bf16: the per-element bound
 # above, carried by later updates of the same rows (as ATOL_FULL)
 ATOL_CELL_FULL = 2e-2
+# packed and slot window plans on the same kernel (phase 8): the gen-1
+# reasons and tolerances
+ATOL_LADDER = ATOL_CELL
+# phase 10: one full ML-10M-shape epoch from init_mf's tables, bf16; the
+# readings were 1.6e-4 to 1.2e-3 (PERF.md), and one epoch at the ladder's
+# etas moves a factor lane by about 3e-3, so the element bound alone cannot
+# tell a wrong update: REL_FULL does
+ATOL_LADDER_FULL = 5e-3
+# phase 9: 11 full epochs of the ladder, bf16, the per-element bound carried
+# by later updates of the same rows (as ATOL_CELL_FULL)
+ATOL_LADDER_REPLAY = ATOL_CELL_FULL
+# phases 9 and 10, per table: ||kernel - plain|| / ||plain - init||, the two
+# sides' distance beside how far the epochs moved the table; an update that
+# is skipped gives 1, one of the wrong sign 2, and an eta 10% off 0.1; the
+# readings were 2e-5 to 1e-3 (PERF.md)
+REL_FULL = 1e-2
 KERNELS = ("dense_cell", "cell_sgd")
+# the card's published peaks (H100 SXM data sheet, at 700 W): memory bytes/s,
+# bf16 tensor-core and float32 CUDA-core operations/s
+HBM_BYTES_S, PEAK_BF16, PEAK_F32 = 3.35e12, 989e12, 67e12
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
 
 
+def bound(nbytes: float, ops: float, peak: float):
+    """(least ms the card could take, "bytes" or "operations")."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_S, ops / peak
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def dense_bound(cells, dim):
+    """A dense epoch reads S, W and the row counts once and every table row
+    once, and writes the rows once; per stored cell element it does the
+    pred, dtheta and dphi products over dim + 2 lanes (bf16 tensor cores)."""
+    n_gu, n_gvp, tu, tv = cells.s.shape
+    elems = n_gu * n_gvp * tu * tv
+    nbytes = (elems * (cells.s.element_size() + cells.w.element_size())
+              + 4 * (cells.ku.numel() + cells.kv.numel())
+              + 2 * 4 * (n_gu * tu + n_gvp * tv) * (dim + 3))
+    return bound(nbytes, 6 * elems * (dim + 2), PEAK_BF16)
+
+
+def window_bound(plan, rows_u, rows_v, n_real, dim):
+    """A window-plan epoch reads each real rating once (u, v, r: 12 bytes;
+    padded slots and the weight stream are the plan's layout, not the
+    work), the per-batch tiles and apply flags, and every table row once,
+    and writes the rows once; per real rating it does a dim + 2 lane dot
+    product and two dim + 2 lane scaled adds (float32 CUDA cores)."""
+    nbytes = (12 * n_real + 4 * (plan.gu.numel() + 2 * plan.gv.numel())
+              + 2 * 4 * (rows_u + rows_v) * (dim + 3))
+    return bound(nbytes, 6 * n_real * (dim + 2), PEAK_F32)
+
+
 def calibrated_ml10m(seed: int = 0):
     """The ML-10M-shape stand-in of bench.py (Zipf-Mandelbrot marginals
     matched to the real dataset; benchmarks/ML10M_STUDY.md)."""
-    from tpu_mf.data.coo import synthetic_ratings
+    from tpu_mf_torch.data.coo import synthetic_ratings
 
     return synthetic_ratings(
         N_USERS, N_ITEMS, N_RATINGS, rank=8, seed=seed,
@@ -91,17 +165,29 @@ def phase_build():
     return card
 
 
-def phase_compare(torch, td, rng):
-    """Dense kernel vs plain version, one epoch on 6x6 cells of 256x256."""
-    from tpu_mf.data.coo import RatingsCOO
-    from tpu_mf_torch.models.mf import params_from_numpy
+def corner(rng, tu, tv):
+    """Uniform ratings on 6x6 tiles of tu x tv at ML-10M density, and
+    random tables at dim 64."""
+    from tpu_mf_torch.data.coo import RatingsCOO
 
-    nu = nv = 6 * 256
-    n = int(nu * nv * N_RATINGS / (N_USERS * N_ITEMS))  # ML-10M density
+    nu, nv = 6 * tu, 6 * tv
+    n = int(nu * nv * N_RATINGS / (N_USERS * N_ITEMS))
     ds = RatingsCOO(u=rng.integers(0, nu, n), v=rng.integers(0, nv, n),
                     r=rng.uniform(0.5, 5.0, n), nu=nu, nv=nv)
-    tabs = [rng.normal(0, 0.1, s).astype("float32")
-            for s in ((nu, DIM), (nv, DIM), (nu,), (nv,))]
+    return ds, n
+
+
+def tables(rng, ds, dim):
+    return [rng.normal(0, 0.1, s).astype("float32")
+            for s in ((ds.nu, dim), (ds.nv, dim), (ds.nu,), (ds.nv,))]
+
+
+def phase_compare(torch, td, rng):
+    """Dense kernel vs plain version, one epoch on 6x6 cells of 256x256."""
+    from tpu_mf_torch.models.mf import params_from_numpy
+
+    ds, n = corner(rng, 256, 256)
+    tabs = tables(rng, ds, DIM)
     eta, lam, gb = 0.02, 5e-3, 3.5
     errs = {}
     for mxu in ("float32", "bfloat16"):
@@ -123,44 +209,53 @@ def phase_compare(torch, td, rng):
     return errs
 
 
-def phase_compare_cells(torch, tc, rng, geometry):
-    """Gen-1 kernel vs plain version, one epoch at the gen-1 path's geometry
-    on 6x6 tiles at ML-10M density, fully sequential (8/8 groups) and at an
-    eta whose windows span 2+ columns, saturating."""
-    from tpu_mf.data.coo import RatingsCOO
+def compare_window_runner(torch, tc, make, ds, tabs, dim, name, what, atol,
+                          phase):
+    """A window-plan runner's kernel vs the plain version, one epoch per
+    working type, at 8/8 groups (an eta past every wider window's envelope)
+    and at the eta whose windows span 4 or more columns on both sides;
+    returns the largest error per working type."""
     from tpu_mf_torch.models.mf import params_from_numpy
 
-    tu, tv, batch = geometry
-    nu, nv = 6 * tu, 6 * tv
-    n = int(nu * nv * N_RATINGS / (N_USERS * N_ITEMS))
-    ds = RatingsCOO(u=rng.integers(0, nu, n), v=rng.integers(0, nv, n),
-                    r=rng.uniform(0.5, 5.0, n), nu=nu, nv=nv)
-    tabs = [rng.normal(0, 0.1, s).astype("float32")
-            for s in ((nu, DIM), (nv, DIM), (nu,), (nv,))]
     lam, gb = 5e-3, 3.5
     errs = {}
     for mxu in ("float32", "bfloat16"):
-        r = tc.CellEpochRunner(ds, tile_u=tu, tile_v=tv, batch=batch,
-                               mxu=mxu, saturate=True, device=DEVICE)
+        r = make(mxu)
         r.pad(params_from_numpy(*tabs, gb, device=DEVICE))
-        for eta in (0.05, 0.2 / max(r._dup_max[2], r._vdup_max[2])):
-            tg, pg = r.pick_theta_groups(eta), r.pick_phi_groups(eta)
+        seq = max(0.05, 1.01 * 0.2 / min(r._dup_max[4], r._vdup_max[4]))
+        for eta in (seq, 0.2 / max(r._dup_max[2], r._vdup_max[2])):
+            with warnings.catch_warnings():  # seq is past the envelope
+                warnings.simplefilter("ignore")
+                tg, pg = r.pick_theta_groups(eta), r.pick_phi_groups(eta)
             got = r.pad(params_from_numpy(*tabs, gb, device=DEVICE))
             want = tuple(t.clone() for t in got)
             tc.cell_epoch_reference(*want, r._dev[0], eta, lam, gb,
-                                    max(1.0, 0.2 / eta), DIM, tg, pg,
+                                    max(1.0, 0.2 / eta), dim, tg, pg,
                                     r.work_dtype, True, r.mxu_pred)
             r.epoch(got, eta, lam, gb)
             torch.cuda.synchronize()
             err = max(float((a - b).abs().max()) for a, b in zip(got, want))
             errs[mxu] = max(errs.get(mxu, 0.0), err)
-            log(f"# phase 2: cell_sgd vs plain, {mxu}, groups {tg}/{pg}, "
-                f"{r.plan.u.shape[0]} batches of {batch} at tiles {tu}x{tv}, "
-                f"dim {DIM}, {n} ratings: max_abs_err {err:.3e} "
-                f"(atol {ATOL_CELL[mxu]:g})")
-            if not err <= ATOL_CELL[mxu]:
-                raise AssertionError(f"cell_sgd disagrees ({mxu}): {err}")
+            log(f"# phase {phase}: {name} vs plain, {mxu}, groups {tg}/{pg} "
+                f"(eta {eta:.3g}), {what}, {r.plan.u.shape[0]} batches, dim "
+                f"{dim}, {len(ds)} ratings: max_abs_err {err:.3e} "
+                f"(atol {atol[mxu]:g})")
+            if not err <= atol[mxu]:
+                raise AssertionError(f"{name} disagrees ({mxu}): {err}")
     return errs
+
+
+def phase_compare_cells(torch, tc, rng, geometry):
+    """Gen-1 kernel vs plain version, one epoch at the gen-1 path's geometry
+    on 6x6 tiles at ML-10M density, saturating."""
+    tu, tv, batch = geometry
+    ds, _ = corner(rng, tu, tv)
+    return compare_window_runner(
+        torch, tc, lambda mxu: tc.CellEpochRunner(
+            ds, tile_u=tu, tile_v=tv, batch=batch, mxu=mxu, saturate=True,
+            device=DEVICE),
+        ds, tables(rng, ds, DIM), DIM, "cell_sgd",
+        f"batch {batch} at tiles {tu}x{tv}", ATOL_CELL, 2)
 
 
 def load_data():
@@ -172,68 +267,149 @@ def load_data():
     return train, test
 
 
-def run_main_path(torch, train, test, phase, use_dense):
-    """train_mf on cuda with every kernel count set to 0 just before; the
-    per-epoch launch counts of both kernels read just after."""
-    from tpu_mf.config import TrainConfig
+def counters():
+    """Launch counts: the dense kernel's wrapper, and the window-plan
+    kernel's per runner family (``cell_epoch.launches`` sums them)."""
     from tpu_mf_torch.ops import sgd_cells as tc
     from tpu_mf_torch.ops import sgd_dense as td
+    from tpu_mf_torch.ops import sgd_packed as tpk
+    from tpu_mf_torch.ops import sgd_slot as tsl
+
+    return {"dense_cell": td.dense_epoch, "cell_sgd": tc.CellEpochRunner,
+            "packed": tpk.PackedEpochRunner, "slot": tsl.SlotEpochRunner}
+
+
+def run_main_path(torch, train, test, phase, dim, iters, use_dense):
+    """train_mf on cuda with every kernel count set to 0 just before; the
+    per-epoch launch counts of every kernel read just after."""
+    from tpu_mf_torch.config import TrainConfig
+    from tpu_mf_torch.ops import sgd_cells as tc
     from tpu_mf_torch.train import train_mf
 
-    cfg = TrainConfig(dim=DIM, iters=EPOCHS, gb=train.mean_rating(),
+    cfg = TrainConfig(dim=dim, iters=iters, gb=train.mean_rating(),
                       use_dense=use_dense)
-    counters = {"dense_cell": td.dense_epoch, "cell_sgd": tc.cell_epoch}
+    counts = counters()
     lines, marks = [], []
 
     def record(line):
         lines.append(line)
         log(line)
         if line.startswith("iter#"):
-            marks.append({k: c.launches for k, c in counters.items()})
+            marks.append({k: c.launches for k, c in counts.items()})
 
-    for c in counters.values():
+    for c in list(counts.values()) + [tc.cell_epoch]:
         c.launches = 0
     t = time.perf_counter()
     params = train_mf(cfg, train, test, log=record, device=DEVICE)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t
-    per_epoch = {k: [b[k] - a[k] for a, b in zip([dict.fromkeys(marks[0], 0)]
+    per_epoch = {k: [b[k] - a[k] for a, b in zip([dict.fromkeys(counts, 0)]
                                                  + marks, marks)]
-                 for k in marks[0]} if marks else {}
-    log(f"# phase {phase}: train_mf(use_dense={use_dense}) on cuda, {EPOCHS} "
-        f"epochs in {wall:.1f} s (set-up included); launches per epoch "
-        f"dense_cell {per_epoch.get('dense_cell')}, cell_sgd "
-        f"{per_epoch.get('cell_sgd')}")
+                 for k in counts}
+    if sum(map(sum, per_epoch.values())) != tc.cell_epoch.launches + sum(
+            per_epoch["dense_cell"]):
+        raise AssertionError("a window-plan launch outside the runners")
+    log(f"# phase {phase}: train_mf(dim={dim}, use_dense={use_dense}) on "
+        f"cuda, {iters} epochs in {wall:.1f} s (set-up included); launches "
+        f"per epoch " + ", ".join(f"{k} {v}" for k, v in per_epoch.items()))
     rm = [float(x.split("tRMSE=")[1]) for x in lines if "tRMSE=" in x]
-    if not (len(rm) == EPOCHS and all(map(math.isfinite, rm))
+    if not (len(rm) == iters and all(map(math.isfinite, rm))
             and rm[-1] < rm[0]):
         raise AssertionError(f"tRMSE not finite and falling: {rm}")
     return cfg, params, rm, lines, per_epoch
 
 
+def only(per_epoch, kernel, epochs):
+    """The kernel launched exactly once in each of ``epochs`` (1-based) and
+    in no other; returns its launches."""
+    got = per_epoch[kernel]
+    want = [int(i + 1 in epochs) for i in range(len(got))]
+    if got != want:
+        raise AssertionError(f"{kernel} launches per epoch {got}, want {want}")
+    return sum(got)
+
+
 def phase_train(torch, train, test):
-    cfg, params, rm, lines, per_epoch = run_main_path(torch, train, test, 3,
-                                                      True)
+    cfg, params, rm, lines, per_epoch = run_main_path(
+        torch, train, test, 3, DIM, EPOCHS, True)
     if not any(x.startswith("# dense-cell kernel from epoch 1") for x in lines):
         raise AssertionError("the dense runner did not carry epoch 1")
-    counts = per_epoch.get("dense_cell", [])
-    if len(counts) != EPOCHS or min(counts) < 1:
-        raise AssertionError(f"dense_cell not launched in every epoch: {counts}")
-    return cfg, params, rm, sum(counts)
+    launches = only(per_epoch, "dense_cell", range(1, EPOCHS + 1))
+    return cfg, params, rm, launches
 
 
 def phase_train_cells(torch, train, test):
-    cfg, params, rm, lines, per_epoch = run_main_path(torch, train, test, 4,
-                                                      False)
+    cfg, params, rm, lines, per_epoch = run_main_path(
+        torch, train, test, 4, DIM, EPOCHS, False)
     if not any(x.startswith(f"# gen-1 cell kernel: epochs 1..{EPOCHS}")
                for x in lines):
         raise AssertionError("the gen-1 runner did not carry the epochs")
-    counts = per_epoch.get("cell_sgd", [])
-    if len(counts) != EPOCHS or min(counts) < 1:
-        raise AssertionError(f"cell_sgd not launched in every epoch: {counts}")
-    if sum(per_epoch.get("dense_cell", [])) != 0:
-        raise AssertionError("the dense kernel ran with use_dense=False")
-    return cfg, params, rm, sum(counts)
+    launches = only(per_epoch, "cell_sgd", range(1, EPOCHS + 1))
+    only(per_epoch, "dense_cell", ())
+    return cfg, params, rm, launches
+
+
+def phase_train_rank8(torch, train, test):
+    """Dense on at dim 8: packed carries epochs 1-2, dense from epoch 3."""
+    _, _, _, lines, per_epoch = run_main_path(torch, train, test, 6, DIM8,
+                                              EPOCHS, True)
+    if "# epoch 3: switching to DenseEpochRunner" not in lines:
+        raise AssertionError("dense did not take over at epoch 3")
+    only(per_epoch, "packed", (1, 2))
+    only(per_epoch, "dense_cell", (3,))
+    only(per_epoch, "slot", ())
+    only(per_epoch, "cell_sgd", ())
+
+
+def phase_train_ladder(torch, train, test):
+    """--no-dense at dim 8: packed until the slot envelope clears, then the
+    slot phases; returns the run's config, final tables and tRMSEs, the
+    schedule's packed and slot geometries and the launches of each
+    family."""
+    cfg, params, rm, lines, per_epoch = run_main_path(
+        torch, train, test, 7, DIM8, LADDER_EPOCHS, False)
+    packed = re.search(r"# lane-packed kernel: epochs 1\.\.(\d+), tiles "
+                       r"(\d+)x(\d+), batch (\d+)", "\n".join(lines))
+    slots = re.findall(r"# slot kernel( \(striped\))?: epochs (\d+)\.\.(\d+), "
+                       r"sub (\d+), tiles (\d+)x(\d+)", "\n".join(lines))
+    if packed is None or not slots:
+        raise AssertionError("the schedule has no packed or no slot phase")
+    first_slot = int(slots[0][1])
+    only(per_epoch, "packed", range(1, first_slot))
+    only(per_epoch, "slot", range(first_slot, LADDER_EPOCHS + 1))
+    only(per_epoch, "dense_cell", ())
+    only(per_epoch, "cell_sgd", ())
+    geo_packed = tuple(int(x) for x in packed.groups()[1:])
+    geo_slots = sorted({(int(sub), bool(st), int(tu), int(tv), int(ep))
+                        for st, ep, _, sub, tu, tv in slots})
+    return (cfg, params, rm, geo_packed, geo_slots, sum(per_epoch["packed"]),
+            sum(per_epoch["slot"]))
+
+
+def phase_compare_ladder(torch, tc, tpk, tsl, rng, geo_packed, geo_slots):
+    """Packed and slot window plans vs the plain version at the geometry of
+    the ladder run, on 6x6 tiles at ML-10M density, saturating."""
+    tu, tv, batch = geo_packed
+    ds, _ = corner(rng, tu, tv)
+    tabs = tables(rng, ds, DIM8)
+    errs = {"packed": compare_window_runner(
+        torch, tc, lambda mxu: tpk.PackedEpochRunner(
+            ds, tile_u=tu, tile_v=tv, batch=batch, dim=DIM8, mxu=mxu,
+            saturate=True, device=DEVICE),
+        ds, tabs, DIM8, "packed", f"batch {batch} at tiles {tu}x{tv}",
+        ATOL_LADDER, 8)}
+    errs["slot"] = {}
+    for sub, striped, tu, tv, _ in geo_slots:
+        e = compare_window_runner(
+            torch, tc, lambda mxu: tsl.SlotEpochRunner(
+                ds, tile_u=tu, tile_v=tv, sub=sub, dim=DIM8, mxu=mxu,
+                balance=True, striped=striped, saturate=True, device=DEVICE),
+            ds, tabs, DIM8, "slot",
+            f"{'striped' if striped else 'plain'} sub {sub} at tiles "
+            f"{tu}x{tv}", ATOL_LADDER, 8)
+        for k, v in e.items():
+            errs["slot"][k] = max(errs["slot"].get(k, 0.0), v)
+    return errs
 
 
 def time_in_turns(torch, cfg, runner, plain_epoch, train, test,
@@ -277,7 +453,129 @@ def time_in_turns(torch, cfg, runner, plain_epoch, train, test,
     if not (err <= atol and same <= atol and abs(rm_plain - rm[-1]) <= 1e-3):
         raise AssertionError(f"{name} and its plain version disagree at "
                              "full size")
-    return sorted(t_k)[len(t_k) // 2], sorted(t_p)[len(t_p) // 2]
+    return median(t_k), median(t_p)
+
+
+def median(ts):
+    return sorted(ts)[len(ts) // 2]
+
+
+def plain_epoch(tc, runner, tables, eta, lam, gb, it):
+    """What ``runner.epoch`` launches at epoch ``it``, through the plain
+    version."""
+    tc.cell_epoch_reference(
+        *tables, runner.materialize()._dev[it % len(runner._dev)], eta, lam,
+        gb, max(1.0, 0.2 / eta), runner.dim, runner.pick_theta_groups(eta),
+        runner.pick_phi_groups(eta), runner.work_dtype, runner.saturate,
+        runner.mxu_pred)
+
+
+def hold(what, got, want, init, atol, phase):
+    """``got`` against ``want`` (MFParams): the largest element difference
+    within ``atol``, and per table the norm of the difference within
+    REL_FULL of the norm of ``want``'s change from ``init``."""
+    names = ("theta", "phi", "bu", "bv")
+    err = max(float((a - b).abs().max()) for a, b in zip(got[:4], want[:4]))
+    rel = {n: float((a - b).norm() / (b - c).norm())
+           for n, a, b, c in zip(names, got, want, init)}
+    log(f"# phase {phase}: {what}: max_abs_err {err:.3e} (atol {atol:g}); "
+        f"difference / change from init " + ", ".join(
+            f"{n} {r:.3e}" for n, r in rel.items()) + f" (limit {REL_FULL:g})")
+    if not (err <= atol and all(r <= REL_FULL for r in rel.values())):
+        raise AssertionError(f"{what}: the kernel and its plain version "
+                             "disagree at full size")
+    return err
+
+
+def phase_replay_ladder(torch, tc, cfg, train, test, params, rm, geo_packed,
+                        geo_slots):
+    """Phase 7's schedule rebuilt from the same initial tables and run
+    through the plain version; returns the initial tables and the
+    schedule."""
+    from tpu_mf_torch.models.mf import init_mf, rmse
+    from tpu_mf_torch.train.loop import _mf_runner_schedule
+
+    init = init_mf(train.nu, train.nv, cfg.dim, cfg.gb,
+                   torch.Generator().manual_seed(cfg.seed), DEVICE)
+    t = time.perf_counter()
+    sched = _mf_runner_schedule(cfg, train, init, lambda _: None)
+    (first, runner), *upcoming = sched
+    slots = sorted((r.sub, r.striped, r.tile_u, r.tile_v, ep)
+                   for ep, r in upcoming)
+    if (first, type(runner).__name__, (runner.tile_u, runner.tile_v,
+                                       runner.batch), slots) != (
+            1, "PackedEpochRunner", geo_packed, geo_slots):
+        raise AssertionError("the rebuilt schedule is not phase 7's")
+    gb = float(init.gb)
+    tables = runner.pad(init)
+    torch.cuda.synchronize()
+    log(f"# phase 9: schedule rebuilt and staged in "
+        f"{time.perf_counter() - t:.1f} s")
+    ms = []
+    for it in range(1, cfg.iters + 1):
+        while upcoming and it >= upcoming[0][0]:
+            nxt = upcoming.pop(0)[1]
+            tables = nxt.pad(runner.trim(tables))
+            runner = nxt
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        plain_epoch(tc, runner, tables, cfg.eta_at(it), cfg.lam, gb, it)
+        b.record()
+        torch.cuda.synchronize()
+        ms.append(a.elapsed_time(b))
+    final = runner.trim(tables)
+    log(f"# phase 9: plain replay epoch ms {[round(x, 3) for x in ms]}")
+    hold(f"train_mf's tables after {cfg.iters} epochs vs the plain replay",
+         params, final, init, ATOL_LADDER_REPLAY, 9)
+    rm_plain = rmse(final, test)
+    log(f"# phase 9: final tRMSE train_mf {rm[-1]:.6f} plain replay "
+        f"{rm_plain:.6f}")
+    if not abs(rm_plain - rm[-1]) <= 1e-3:
+        raise AssertionError("the ladder's tRMSE and its plain replay's "
+                             "disagree")
+    return init, sched
+
+
+def time_one_epoch(torch, tc, cfg, runner, train, test, init, it, name):
+    """One full epoch at epoch ``it``'s eta from the initial tables, plain
+    version, kernel, kernel, plain version, timed with CUDA events and held
+    to each other; returns the median epoch ms of each and the bound of
+    the epoch."""
+    from tpu_mf_torch.models.mf import rmse
+
+    eta = cfg.eta_at(it)
+    gb = float(init.gb)
+    tg, pg = runner.pick_theta_groups(eta), runner.pick_phi_groups(eta)
+    plan = runner.materialize()._dev[it % len(runner._dev)]
+    times, out = {"kernel": [], "plain": []}, {}
+    for which in ("plain", "kernel", "kernel", "plain"):
+        tabs = runner.pad(init)
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        if which == "kernel":
+            runner.epoch(tabs, eta, cfg.lam, gb, epoch_idx=it)
+        else:
+            plain_epoch(tc, runner, tabs, eta, cfg.lam, gb, it)
+        b.record()
+        torch.cuda.synchronize()
+        times[which].append(a.elapsed_time(b))
+        out.setdefault(which, runner.trim(tabs))
+    n = len(train)
+    for what, ts in times.items():
+        log(f"# phase 10: {name} {what}: epoch ms "
+            f"{[round(x, 3) for x in ts]}, rating updates/s "
+            f"{[round(n / (x / 1e3)) for x in ts]}")
+    hold(f"{name} epoch {it} (eta {eta:g}, groups {tg}/{pg}, "
+         f"{plan.u.shape[0]} batches, columns of {plan.u.shape[2]}), kernel "
+         f"vs plain", out["kernel"], out["plain"], init, ATOL_LADDER_FULL, 10)
+    rm_k, rm_p = rmse(out["kernel"], test), rmse(out["plain"], test)
+    log(f"# phase 10: {name} tRMSE kernel {rm_k:.6f} plain {rm_p:.6f}")
+    if not abs(rm_k - rm_p) <= 1e-3:
+        raise AssertionError(f"{name}: tRMSE of kernel and plain disagree")
+    p = runner.plan
+    return (median(times["kernel"]), median(times["plain"]),
+            window_bound(plan, p.n_gu * p.tile_u, p.n_gv * p.tile_v, n,
+                         cfg.dim))
 
 
 def phase_time(torch, td, cfg, train, test, params_final, rm):
@@ -287,8 +585,9 @@ def phase_time(torch, td, cfg, train, test, params_final, rm):
         td.dense_epoch_reference(*tables, r.cells, eta, cfg.lam, cfg.gb,
                                  max(1.0, 0.2 / eta), DIM)
 
-    return time_in_turns(torch, cfg, r, plain, train, test, params_final, rm,
-                         3, "dense_cell", ATOL_FULL)
+    ms = time_in_turns(torch, cfg, r, plain, train, test, params_final, rm,
+                       3, "dense_cell", ATOL_FULL)
+    return ms + (dense_bound(r.cells, DIM),)
 
 
 def phase_time_cells(torch, tc, cfg, train, test, params_final, rm):
@@ -314,8 +613,23 @@ def phase_time_cells(torch, tc, cfg, train, test, params_final, rm):
             max(1.0, 0.2 / eta), DIM, r.pick_theta_groups(eta),
             r.pick_phi_groups(eta), r.work_dtype, True, r.mxu_pred)
 
-    return time_in_turns(torch, cfg, r, plain, train, test, params_final,
-                         rm, 4, "cell_sgd", ATOL_CELL_FULL)
+    ms = time_in_turns(torch, cfg, r, plain, train, test, params_final,
+                       rm, 4, "cell_sgd", ATOL_CELL_FULL)
+    p = r.plan
+    return ms + (window_bound(r._dev[1], p.n_gu * p.tile_u,
+                              p.n_gv * p.tile_v, len(train), DIM),)
+
+
+def phase_time_ladder(torch, tc, cfg, train, test, init, sched):
+    """One full epoch of each phase of the ladder's schedule at its first
+    epoch; returns the packed epoch's and the first slot phase's times."""
+    timed = []
+    for ep, r in sched:
+        name = ("packed" if not hasattr(r, "sub") else
+                f"slot{' striped' if r.striped else ''} sub {r.sub}")
+        timed.append(time_one_epoch(torch, tc, cfg, r, train, test, init, ep,
+                                    name))
+    return timed[0], timed[1]
 
 
 def phase_checkpoint(torch, cfg, params):
@@ -337,6 +651,17 @@ def phase_checkpoint(torch, cfg, params):
     log(f"# phase 5: checkpoint model_{cfg.iters} ({size} bytes) reads back")
 
 
+def entry(name, replaces, launches, err, timed, source=None):
+    ms, plain_ms, (bound_ms, bound_by) = timed
+    return {"name": name, "route": "cuda",
+            "source": source or f"tpu_mf_torch/csrc/{name}.cu",
+            "replaces": replaces, "launches": launches, "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by,
+            # no single PyTorch call computes an SGD epoch
+            "library_ms": None}
+
+
 def main() -> int:
     import torch
 
@@ -348,6 +673,8 @@ def main() -> int:
     os.environ["TPU_MF_PLAN_CACHE"] = "0"
     from tpu_mf_torch.ops import sgd_cells as tc
     from tpu_mf_torch.ops import sgd_dense as td
+    from tpu_mf_torch.ops import sgd_packed as tpk
+    from tpu_mf_torch.ops import sgd_slot as tsl
 
     card = phase_build()
     errs = phase_compare(torch, td, np.random.default_rng(0))
@@ -355,26 +682,35 @@ def main() -> int:
     cell_errs = phase_compare_cells(torch, tc, np.random.default_rng(1),
                                     tc.pick_cell_geometry(train))
     cfg, params, rm, launches = phase_train(torch, train, test)
-    ms, plain_ms = phase_time(torch, td, cfg, train, test, params, rm)
+    dense_t = phase_time(torch, td, cfg, train, test, params, rm)
     ccfg, cparams, crm, claunches = phase_train_cells(torch, train, test)
-    cms, cplain_ms = phase_time_cells(torch, tc, ccfg, train, test, cparams,
-                                      crm)
+    cell_t = phase_time_cells(torch, tc, ccfg, train, test, cparams, crm)
     phase_checkpoint(torch, cfg, params)
-    if "jax" in sys.modules:
-        raise AssertionError("the port imported JAX")
-    log(json.dumps({"kernels": [{
-        "name": "dense_cell", "route": "cuda",
-        "source": "tpu_mf_torch/csrc/dense_cell.cu",
-        "replaces": "tpu_mf/ops/pallas_sgd_dense.py:239",
-        "launches": launches, "max_abs_err": errs["bfloat16"],
-        "ms": ms, "plain_ms": plain_ms,
-    }, {
-        "name": "cell_sgd", "route": "cuda",
-        "source": "tpu_mf_torch/csrc/cell_sgd.cu",
-        "replaces": "tpu_mf/ops/pallas_sgd.py:412",
-        "launches": claunches, "max_abs_err": cell_errs["bfloat16"],
-        "ms": cms, "plain_ms": cplain_ms,
-    }]}))
+    phase_train_rank8(torch, train, test)
+    (lcfg, lparams, lrm, geo_packed, geo_slots, plaunches,
+     slaunches) = phase_train_ladder(torch, train, test)
+    lerrs = phase_compare_ladder(torch, tc, tpk, tsl,
+                                 np.random.default_rng(2), geo_packed,
+                                 geo_slots)
+    init, sched = phase_replay_ladder(torch, tc, lcfg, train, test, lparams,
+                                      lrm, geo_packed, geo_slots)
+    packed_t, slot_t = phase_time_ladder(torch, tc, lcfg, train, test, init,
+                                         sched)
+    bad = sorted(m for m in sys.modules
+                 if m.split(".")[0] in ("jax", "jaxlib", "tpu_mf"))
+    if bad:
+        raise AssertionError(f"the port imported JAX or tpu_mf: {bad[:5]}")
+    cell_src = "tpu_mf_torch/csrc/cell_sgd.cu"
+    log(json.dumps({"kernels": [
+        entry("dense_cell", "tpu_mf/ops/pallas_sgd_dense.py:239", launches,
+              errs["bfloat16"], dense_t),
+        entry("cell_sgd", "tpu_mf/ops/pallas_sgd.py:412", claunches,
+              cell_errs["bfloat16"], cell_t),
+        entry("packed", "tpu_mf/ops/pallas_sgd_packed.py:226", plaunches,
+              lerrs["packed"]["bfloat16"], packed_t, cell_src),
+        entry("slot", "tpu_mf/ops/pallas_sgd_slot.py:606", slaunches,
+              lerrs["slot"]["bfloat16"], slot_t, cell_src),
+    ]}))
     log(card)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

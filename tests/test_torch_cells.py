@@ -19,8 +19,9 @@ from tpu_mf.ops import pallas_sgd_slot as jsl
 from tpu_mf.ops import plan_cache as jcache
 from tpu_mf_torch.models.mf import params_from_numpy, params_to_numpy
 from tpu_mf_torch.ops import plan_cache as tcache
-from tpu_mf_torch.ops import routing as troute
 from tpu_mf_torch.ops import sgd_cells as tc
+from tpu_mf_torch.ops import sgd_packed as tpk
+from tpu_mf_torch.ops import sgd_slot as tsl
 
 torch.set_num_threads(1)
 
@@ -93,9 +94,9 @@ def test_routing_predicates_match():
             p = types.SimpleNamespace(theta=np.empty((0, dim)),
                                       phi=np.empty((nv, 0)))
             assert tc.pallas_eligible(p, 4096) == jp.pallas_eligible(p, 4096)
-            assert (troute.packed_eligible(p, 4096)
+            assert (tpk.packed_eligible(p, 4096)
                     == jpk.packed_eligible(p, 4096))
-            assert troute.slot_eligible(p, 4096) == jsl.slot_eligible(p, 4096)
+            assert tsl.slot_eligible(p, 4096) == jsl.slot_eligible(p, 4096)
     big = types.SimpleNamespace(theta=np.empty((0, 4000)),
                                 phi=np.empty((10, 0)))
     assert not tc.pallas_eligible(big, 4096)
@@ -214,7 +215,8 @@ def test_balance_pad_trim_roundtrip_is_exact():
 def test_cell_epoch_rejects_bad_groups_and_devices():
     ds = synthetic_ratings(100, 80, 500, seed=0)
     with pytest.raises(ValueError):
-        tc.CellEpochRunner(ds, tile_u=32, tile_v=32, batch=64, theta_groups=3)
+        tc.CellEpochRunner(ds, tile_u=32, tile_v=32, batch=64, theta_groups=3,
+                           device="cpu")
     r = tc.CellEpochRunner(ds, tile_u=32, tile_v=32, batch=64, device="cpu")
     tables = r.pad(params_from_numpy(*np_tables(100, 80, 8, 0, 3.0),
                                      device="cpu"))

@@ -10,11 +10,13 @@ import numpy as np
 import pytest
 import torch
 
-from tpu_mf.config import TrainConfig
-from tpu_mf.data.coo import synthetic_ratings
+from tpu_mf_torch.config import TrainConfig
+from tpu_mf_torch.data.coo import synthetic_ratings
 from tpu_mf_torch.models.mf import params_from_numpy
 from tpu_mf_torch.ops import sgd_cells as tc
 from tpu_mf_torch.ops import sgd_dense as td
+from tpu_mf_torch.ops import sgd_packed as tpk
+from tpu_mf_torch.ops import sgd_slot as tsl
 from tpu_mf_torch.train import train_mf
 
 
@@ -136,5 +138,74 @@ def test_train_mf_no_dense_runs_gen1(cuda):
     assert log[0].startswith("# gen-1 cell kernel: epochs 1..3"), log
     assert tc.cell_epoch.launches == before + 3
     assert td.dense_epoch.launches == dense_before
+    rm = [float(x.split("tRMSE=")[1]) for x in log if "tRMSE=" in x]
+    assert np.all(np.isfinite(rm)) and rm[-1] < rm[0], rm
+
+
+LADDER = {
+    "packed": lambda ds, **kw: tpk.PackedEpochRunner(ds, batch=1024, **kw),
+    "slot": lambda ds, **kw: tsl.SlotEpochRunner(ds, sub=64, balance=True,
+                                                 **kw),
+    "stripe": lambda ds, **kw: tsl.SlotEpochRunner(ds, sub=128, balance=True,
+                                                   striped=True, **kw),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dim", [8, 40])
+@pytest.mark.parametrize("groups", ["8/8", "adaptive"])
+@pytest.mark.parametrize("family", sorted(LADDER))
+@pytest.mark.parametrize("mxu,atol", [("float32", 1e-4), ("bfloat16", 2e-3)])
+def test_ladder_kernel_matches_reference(cuda, mxu, atol, family, groups,
+                                         dim):
+    """cell_epoch on the packed, plain-slot and striped-slot window plans
+    against cell_epoch_reference on the card (mxu_pred off), saturating,
+    at P 8 (dim 8) and P 2 (dim 40), pinned and adaptive groups; the
+    tolerances of test_cell_kernel_matches_reference."""
+    ds = synthetic_ratings(500, 400, 40000, rank=3, noise=0.3, seed=5,
+                           zipf=1.0, zipf_q=20.0)
+    tabs = np_tables(ds.nu, ds.nv, dim, seed=6, gb=3.0)
+    fixed = dict(theta_groups=8, phi_groups=8) if groups == "8/8" else {}
+    r = LADDER[family](ds, seed=7, dim=dim, mxu=mxu, saturate=True,
+                       device=cuda, **fixed)
+    eta = 0.05 if groups == "8/8" else 0.2 / max(r._dup_max[2],
+                                                  r._vdup_max[2])
+    tg, pg = r.pick_theta_groups(eta), r.pick_phi_groups(eta)
+    if groups == "8/8":
+        assert (tg, pg) == (8, 8)
+    else:
+        assert max(tg, pg) <= 2, (tg, pg)
+    base = r.pad(params_from_numpy(*tabs, device=cuda))
+    ref = tuple(t.clone() for t in base)
+    before, fam_before = tc.cell_epoch.launches, type(r).launches
+    tc.cell_epoch_reference(*ref, r._dev[0], eta, 0.005, 3.0,
+                            max(1.0, 0.2 / eta), r.dim, tg, pg,
+                            r.work_dtype, True, False)
+    r.epoch(base, eta, 0.005, 3.0)
+    torch.cuda.synchronize()
+    assert tc.cell_epoch.launches == before + 1
+    assert type(r).launches == fam_before + 1
+    for a, b in zip(base, ref):
+        assert float((a - b).abs().max()) <= atol
+    start = r.pad(params_from_numpy(*tabs, device=cuda))
+    assert float((base[0] - start[0]).abs().max()) > 1e-3  # it trained
+
+
+@pytest.mark.cuda
+def test_train_mf_dim8_no_dense_runs_the_ladder(cuda):
+    """train_mf(dim 8, use_dense=False) on a CUDA device: the packed
+    runner carries epochs 1-2 and the slot runners (plain, then striped)
+    epochs 3-5, one launch each, and the test RMSE falls."""
+    ds = synthetic_ratings(400, 250, 30000, rank=3, seed=8, zipf=1.2)
+    tr, te = ds.split(0.1, seed=1)
+    cfg = TrainConfig(dim=8, iters=5, eta=0.002, use_dense=False,
+                      gb=tr.mean_rating())
+    log = []
+    counts = (tpk.PackedEpochRunner, tsl.SlotEpochRunner, tc.CellEpochRunner,
+              td.dense_epoch)
+    before = [c.launches for c in counts]
+    train_mf(cfg, tr, te, log=log.append, device=cuda)
+    assert [c.launches - b for c, b in zip(counts, before)] == [2, 3, 0, 0]
+    assert "# epoch 5: switching to SlotEpochRunner (striped)" in log, log
     rm = [float(x.split("tRMSE=")[1]) for x in log if "tRMSE=" in x]
     assert np.all(np.isfinite(rm)) and rm[-1] < rm[0], rm

@@ -10,7 +10,6 @@ import jax.numpy as jnp
 import pytest
 import torch
 
-from tpu_mf.config import TrainConfig
 from tpu_mf.data.coo import RatingsCOO, synthetic_ratings
 from tpu_mf.data.textfmt import write_raw
 from tpu_mf.io.checkpoint import load_mf_binary as jax_load_mf_binary
@@ -18,6 +17,7 @@ from tpu_mf.io.checkpoint import save_mf_binary as jax_save_mf_binary
 from tpu_mf.models.mf import MFParams as JaxParams
 from tpu_mf.ops.pallas_sgd_dense import DenseEpochRunner as JaxDenseRunner
 from tpu_mf.train.loop import train_mf as jax_train_mf
+from tpu_mf_torch.config import TrainConfig
 from tpu_mf_torch.models.mf import params_from_numpy, params_to_numpy
 from tpu_mf_torch.train import train_mf
 from tpu_mf_torch.train.loop import _Observer, _train_mf_fused
@@ -89,7 +89,8 @@ def test_fused_schedule_on_cpu_matches_pallas_loop():
 
 def test_fused_schedule_runs_batched_epochs_before_dense():
     """At an eta above the dense window bound the epochs before engagement
-    run the batched path, and the log says so by name."""
+    run the lane-packed kernel at dim 8 (the batched path no longer runs
+    them), and the log says so by name; dense takes over after it."""
     tr, _ = data()
     cfg = TrainConfig(dim=8, iters=3, eta=0.04, gam=2.0, gb=tr.mean_rating())
     log = []
@@ -97,10 +98,16 @@ def test_fused_schedule_runs_batched_epochs_before_dense():
                                device="cpu")
     _train_mf_fused(cfg, tr, None, params, log.append,
                     _Observer(cfg, len(tr), log.append))
-    assert ("# lane-packed and slot-major kernels (ops/pallas_sgd_packed.py, "
-            "ops/pallas_sgd_slot.py) not yet ported (ROADMAP Queue 1 item 5):"
-            " epochs 1..1 use the batched path") in log
+    assert any(x.startswith("# lane-packed kernel: epochs 1..1, tiles "
+                            "1024x1024, batch 8192") for x in log), log
+    assert not any("batched path" in x for x in log), log
     assert "# epoch 2: switching to DenseEpochRunner" in log
+
+
+def slot_data():
+    """The data of tests/test_slot_kernel.py::test_pick_mf_runners_switch_
+    schedule: zipfy enough that the slot envelope clears epochs late."""
+    return synthetic_ratings(400, 250, 30000, rank=3, seed=8, zipf=1.2)
 
 
 def big_catalog():
@@ -121,7 +128,18 @@ SCHEDULES = {
                               dict(dim=64, eta=0.04, gam=2.0),
                               "# gen-1 cell kernel: epochs 1..1"),
     "dim8_packed_slot": (lambda: data()[0], dict(dim=8, eta=0.04, gam=2.0),
-                         "# lane-packed and slot-major kernels"),
+                         "# lane-packed kernel: epochs 1..1"),
+    # packed epoch 1, then slot at sub 192, 384 and striped 512
+    "dim8_ladder": (slot_data, dict(dim=8, iters=6, eta=0.002,
+                                    use_dense=False),
+                    "# small-window slot kernel (sub 192) engages at epoch 2"),
+    # the same ladder probed, but dense engages first and drops it
+    "dim8_ladder_then_dense": (slot_data, dict(dim=8, iters=6, eta=0.002),
+                               "# dense-cell kernel engages at epoch 2"),
+    # an eta the slot envelope never clears: packed all the way
+    "dim16_packed_only": (slot_data, dict(dim=16, iters=3, eta=0.02,
+                                          use_dense=False),
+                          "# slot kernel staleness envelope exceeded"),
     "item_sharded": (big_catalog, dict(dim=64),
                      "# item-sharded kernel (ops/phi_shard.py) not yet "
                      "ported (ROADMAP Queue 1 item 6): epochs 1..3 use the "
@@ -129,22 +147,19 @@ SCHEDULES = {
 }
 # runner families: what tpu_mf runs, and what the port runs in its place
 KINDS = {"PallasEpochRunner": "gen-1", "CellEpochRunner": "gen-1",
-         "DenseEpochRunner": "dense", "PackedEpochRunner": "batched",
-         "SlotEpochRunner": "batched", "PhiShardedRunner": "batched",
+         "DenseEpochRunner": "dense", "PackedEpochRunner": "packed",
+         "SlotEpochRunner": "slot", "PhiShardedRunner": "batched",
          "BatchedRunner": "batched"}
 
 
 def phases(sched):
-    """[(first epoch, family, tile_u, tile_v, batch)], consecutive phases of
-    one family merged (tpu_mf's packed -> slot ladder is one batched phase
-    in the port)."""
+    """[(first epoch, family, tile_u, tile_v, batch, sub, striped)]."""
     out = []
     for ep, r in sched:
         kind = KINDS[type(r).__name__]
-        if out and out[-1][1] == kind:
-            continue
-        geom = ((None,) * 3 if kind == "batched" else
-                (r.tile_u, r.tile_v, getattr(r, "batch", None)))
+        geom = ((None,) * 5 if kind == "batched" else
+                (r.tile_u, r.tile_v, getattr(r, "batch", None),
+                 getattr(r, "sub", None), getattr(r, "striped", None)))
         out.append((ep, kind) + geom)
     return out
 
@@ -159,7 +174,7 @@ def test_schedule_matches_tpu_mf(case):
 
     make, opts, line = SCHEDULES[case]
     ds = make()
-    cfg = TrainConfig(iters=3, gb=3.0, **opts)
+    cfg = TrainConfig(**{"iters": 3, "gb": 3.0, **opts})
     tabs = np_tables(ds.nu, ds.nv, cfg.dim, cfg.gb)
     want = jax_schedule(cfg, ds, JaxParams(*(jnp.asarray(t) for t in tabs)),
                         lambda _: None)
@@ -231,6 +246,62 @@ def test_gen1_to_dense_handover_matches_pallas_loop():
         np.testing.assert_allclose(a, b, rtol=0, atol=1e-4)
 
 
+def jax_twin(runner, tr, cfg):
+    """tpu_mf's interpret-mode, f32 runner of the same family, plans and
+    options as a runner of the port's dim-8 schedule."""
+    from tpu_mf.ops.pallas_sgd_packed import PackedEpochRunner
+    from tpu_mf.ops.pallas_sgd_slot import SlotEpochRunner
+
+    common = dict(seed=cfg.seed, saturate=True, mxu="float32", interpret=True)
+    kind = KINDS[type(runner).__name__]
+    if kind == "packed":
+        return PackedEpochRunner(tr, batch=runner.batch, n_plans=2,
+                                 dim=cfg.dim, **common)
+    if kind == "slot":
+        return SlotEpochRunner(tr, n_plans=2, dim=cfg.dim, balance=True,
+                               striped=runner.striped, sub=runner.sub,
+                               **common)
+    assert kind == "dense", kind
+    return JaxDenseRunner(tr, dim=cfg.dim, **common)
+
+
+@pytest.mark.parametrize("case", ["packed_slot_stripe", "packed_dense"])
+def test_ladder_handovers_match_pallas_loop(case):
+    """_train_mf_fused at dim 8 on CPU tensors through the ladder's
+    handovers (packed -> plain slot sub 256 -> striped sub 512, with
+    use_dense=False; packed -> dense), each through trim (inverting the
+    serpentine maps) and the next runner's pad. Against the same phases of
+    tpu_mf's interpret-mode runners: tables within 1e-4 (f32 sums in other
+    orders over up to 5 epochs of the 2e-5 per-epoch tolerance)."""
+    from tpu_mf_torch.train.loop import _mf_runner_schedule
+
+    if case == "packed_slot_stripe":
+        tr, te = slot_data().split(0.1, seed=1)
+        opts = dict(iters=5, eta=0.002, use_dense=False)
+        switches = ["# epoch 3: switching to SlotEpochRunner",
+                    "# epoch 5: switching to SlotEpochRunner (striped)"]
+    else:
+        tr, te = data()
+        opts = dict(iters=3, eta=0.04, gam=2.0)
+        switches = ["# epoch 2: switching to DenseEpochRunner"]
+    cfg = TrainConfig(dim=8, gb=tr.mean_rating(), **opts)
+    tabs = np_tables(tr.nu, tr.nv, 8, cfg.gb)
+    log = []
+    got = _train_mf_fused(cfg, tr, te, params_from_numpy(*tabs, device="cpu"),
+                          log.append, _Observer(cfg, len(tr), log.append))
+    assert [x for x in log if "switching" in x] == switches, log
+    sched = _mf_runner_schedule(cfg, tr, params_from_numpy(*tabs,
+                                                           device="cpu"),
+                                lambda _: None)
+    assert sched[0][0] == 1 and KINDS[type(sched[0][1]).__name__] == "packed"
+    want = jax_loop([(ep, jax_twin(r, tr, cfg)) for ep, r in sched], tabs,
+                    cfg)
+    for a, b in zip(params_to_numpy(got)[:4], want):
+        np.testing.assert_allclose(a, b, rtol=0, atol=1e-4)
+    rm = trmse(log)
+    assert len(rm) == cfg.iters and np.all(np.isfinite(rm)) and rm[-1] < rm[0]
+
+
 def write_data(tmp_path):
     tr, te = data()
     write_raw(str(tmp_path / "train.csv"), tr)
@@ -275,17 +346,36 @@ def test_cli_metrics_and_trace(tmp_path):
 
 
 def test_port_runs_without_jax(tmp_path):
-    """A fresh interpreter imports the port and runs the CPU slice through
-    the CLI without importing JAX."""
+    """A fresh interpreter in which tpu_mf cannot be imported runs the CPU
+    slice through the CLI and the fused dim-8 schedule (packed, then dense)
+    on CPU tensors, and imports neither JAX nor any module of tpu_mf."""
     args = write_data(tmp_path) + ["--device", "cpu"]
-    code = ("import sys; from tpu_mf_torch.cli import main; "
-            f"rc = main({args!r}); "
-            "assert rc == 0 and 'jax' not in sys.modules, sorted(sys.modules)")
+    code = f"""
+import sys
+sys.modules["tpu_mf"] = None  # any import of the JAX package fails
+from tpu_mf_torch.cli import main
+from tpu_mf_torch.config import TrainConfig
+from tpu_mf_torch.data.coo import synthetic_ratings
+from tpu_mf_torch.models.mf import init_mf
+from tpu_mf_torch.train.loop import _Observer, _train_mf_fused
+import torch
+assert main({args!r}) == 0
+tr, te = synthetic_ratings(200, 150, 6000, rank=3, noise=0.2,
+                           seed=0).split(0.1, seed=1)
+cfg = TrainConfig(dim=8, iters=2, eta=0.04, gam=2.0, gb=tr.mean_rating())
+params = init_mf(tr.nu, tr.nv, 8, cfg.gb, torch.Generator().manual_seed(0),
+                 "cpu")
+_train_mf_fused(cfg, tr, te, params, print, _Observer(cfg, len(tr), print))
+bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
+       or m == "tpu_mf" or m.startswith("tpu_mf.")]
+assert bad == ["tpu_mf"] and sys.modules["tpu_mf"] is None, bad
+"""
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run([sys.executable, "-c", code], cwd=tmp_path, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr[-2000:]
-    assert "iter#2" in proc.stdout
+    assert proc.stdout.count("iter#2") == 2
+    assert "# lane-packed kernel: epochs 1..1" in proc.stdout
 
 
 def test_cli_cuda_without_gpu_fails(tmp_path):
@@ -296,3 +386,19 @@ def test_cli_cuda_without_gpu_fails(tmp_path):
     from tpu_mf_torch.cli import main
 
     assert main(write_data(tmp_path) + ["--device", "cuda"]) != 0
+
+
+def test_entry_points_default_to_cuda():
+    """train_mf, the checkpoint loader and every runner run on the card
+    unless the caller asks for the CPU."""
+    import inspect
+
+    from tpu_mf_torch.io.checkpoint import load_mf_binary
+    from tpu_mf_torch.ops.sgd_cells import CellEpochRunner
+    from tpu_mf_torch.ops.sgd_dense import DenseEpochRunner
+    from tpu_mf_torch.ops.sgd_packed import PackedEpochRunner
+    from tpu_mf_torch.ops.sgd_slot import SlotEpochRunner
+
+    for fn in (train_mf, load_mf_binary, CellEpochRunner, DenseEpochRunner,
+               PackedEpochRunner, SlotEpochRunner):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"

@@ -15,7 +15,7 @@ import argparse
 import dataclasses
 import sys
 
-from tpu_mf.config import TrainConfig
+from tpu_mf_torch.config import TrainConfig
 
 # Modes the port accepts but does not run yet, and the ROADMAP item for each.
 _NOT_PORTED = {
@@ -120,7 +120,7 @@ def main(argv=None) -> int:
               "(use --device cpu for the CPU path)", file=sys.stderr)
         return 1
 
-    from tpu_mf.data.textfmt import read_any
+    from tpu_mf_torch.data.textfmt import read_any
     from tpu_mf_torch.io.checkpoint import load_mf_binary, save_mf_binary, save_npz
     from tpu_mf_torch.train.loop import train_mf
 

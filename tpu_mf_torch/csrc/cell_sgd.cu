@@ -1,8 +1,21 @@
-// Gen-1 cell-plan SGD epoch for Hopper (sm_90a).
+// Window-plan SGD epoch for Hopper (sm_90a).
 //
-// Replaces tpu_mf/ops/pallas_sgd.py:_epoch_kernel. A plan batch holds 8
-// sub-batch columns of B/8 rating slots; all columns of a batch share one
-// user tile gu[i], and column k has its own item tile gv[i][k]. Batches run
+// Replaces three TPU kernels that compute the same epoch over different
+// plans:
+//   tpu_mf/ops/pallas_sgd.py:_epoch_kernel (gen-1 cell plans,
+//     ops/sgd_cells.py);
+//   tpu_mf/ops/pallas_sgd_packed.py:_packed_epoch_kernel (lane-packed plans,
+//     ops/sgd_packed.py: columns of B/8 slots);
+//   tpu_mf/ops/pallas_sgd_slot.py:_slot_kernel (plain and delta-striped
+//     slot plans, ops/sgd_slot.py: columns of sub * P slots, up to 4096).
+// The TPU kernels' lane packing, slot-major tables, lane rolls and one-hot
+// gathers are layout; each family's host code converts its plan to the
+// window plan below, and the packed and slot families run with mxu_pred off
+// (their TPU kernels sum unrounded products).
+//
+// A plan batch holds 8 sub-batch columns of rating slots; all columns of a
+// batch share one user tile gu[i], and column k has its own item tile
+// gv[i][k]. Batches run
 // in plan order, and inside a batch the columns run in order. Rows are the
 // fused homogeneous rows of ops/rows.py (theta = [fac | bu | 1 | cnt],
 // phi = [fac | 1 | bv | cnt]), so per rating

@@ -31,7 +31,7 @@ def save_mf_binary(path: str, params: MFParams, lam: float) -> None:
 
 
 def load_mf_binary(path: str, gb: float = 2.76,
-                   device: torch.device | str = "cpu") -> Tuple[MFParams, float]:
+                   device: torch.device | str = "cuda") -> Tuple[MFParams, float]:
     """(params, lambda) from a reference-format file. The file does not
     store gb (model.cc:106-107), so it is supplied, as the reference's
     --bias does."""

@@ -4,8 +4,9 @@ Plan construction is argsort-bound: tens of seconds for a Netflix-scale
 plan on one host core. The plan builders consult a disk cache keyed by
 (data fingerprint, seed, kernel geometry) before building.
 
-The environment variable, the key and the npz layout are those of
-``tpu_mf``, so either package reads the plans the other wrote.
+The environment variable, the key, the kind names ("cell", "packed",
+"slot", "stripe") and the npz layout are those of ``tpu_mf``, so either
+package reads the plans the other wrote.
 
 Policy:
 * Only plans for datasets with >= MIN_RATINGS ratings are cached (small

@@ -23,6 +23,11 @@ same windows. ``cell_epoch`` runs the hand-written CUDA kernel
 (``csrc/cell_sgd.cu``, one launch per epoch) on CUDA tensors and the plain
 PyTorch version ``cell_epoch_reference`` on CPU tensors. Epochs update the
 fused tables in place.
+
+Any plan of (NB, column height, 8) tile-local ids with ``gu``, ``gv`` and
+weights is a window plan: the lane-packed and slot-major families
+(``ops/sgd_packed.py``, ``ops/sgd_slot.py``) convert theirs to it and run
+on the same kernel through ``WindowRunner``.
 """
 
 from __future__ import annotations
@@ -34,7 +39,7 @@ from typing import NamedTuple, Tuple
 import numpy as np
 import torch
 
-from tpu_mf.data.coo import RatingsCOO
+from tpu_mf_torch.data.coo import RatingsCOO
 from tpu_mf_torch.models.mf import MFParams
 from tpu_mf_torch.ops import _build
 from tpu_mf_torch.ops.plan_cache import cached_build
@@ -244,7 +249,7 @@ def warn_window_envelope(kind: str, side: str, eta: float, dups: int,
         "gradients computed at the same stale point and can diverge "
         "(bias terms first; watch for nan tRMSE). Reduce eta, raise gam "
         "so eta decays faster, or shrink the batch.",
-        stacklevel=4,
+        stacklevel=5,
     )
 
 
@@ -444,69 +449,77 @@ def cell_epoch(theta: torch.Tensor, phi: torch.Tensor, plan: DevicePlan,
 cell_epoch.launches = 0  # kernel launches (CUDA calls), not CPU runs
 
 
-class CellEpochRunner:
-    """Holds cell plans on a device and runs gen-1 epochs over them
-    (``pad`` / ``epoch`` / ``trim``), as ``tpu_mf``'s PallasEpochRunner.
+class WindowRunner:
+    """Window plans on a device and gen-1 epochs over them (``pad`` /
+    ``epoch`` / ``trim``): what the gen-1, lane-packed and slot-major
+    runners share. Each family builds its own plans (``plans``, kept as
+    ``tpu_mf`` builds them) and says how one becomes window-plan columns
+    (``_window_plan``); all of them run ``cell_epoch``.
 
-    - ``n_plans`` > 1 rotates independently shuffled plans (seeds
-      seed + 7919 p) by epoch.
     - ``theta_groups`` / ``phi_groups`` None: picked per epoch from eta and
-      the plans' within-window duplicate counts.
-    - ``balance`` relabels ids to even out per-tile loads (exact: pad/trim
-      invert the maps). ``saturate`` caps a row's window step at
-      min(1, cap/k), cap = max(1, 0.2/eta).
+      the plans' within-window duplicate counts (``col_ids`` maps a plan's
+      id array to the (NB, rows, 8) labels those counts are taken over).
+    - ``saturate`` caps a row's window step at min(1, cap/k),
+      cap = max(1, 0.2/eta).
     - ``mxu`` names the working type: "bfloat16" (production: bf16 rows and
       products, f32 sums) or "float32" (everything f32, for parity runs).
-      t*p is rounded to it before the row sum up to 2 lane groups
-      (``mxu_pred``; ``pad`` turns it off past that, as in ``tpu_mf``)."""
+    - ``map_u`` / ``map_v``: new-of-old id relabelings the plans were built
+      on; ``pad`` / ``trim`` invert them, so training on them is exact.
+    - Plans reach the device at ``materialize`` (``pad`` calls it), never
+      while a schedule only probes a runner's statistics."""
 
-    def __init__(self, ds: RatingsCOO, tile_u: int = 512, tile_v: int = 512,
-                 batch: int = 2048, seed: int = 0, mxu: str = "bfloat16",
-                 theta_groups: int | None = None,
-                 phi_groups: int | None = None, n_plans: int = 1,
-                 balance: bool = False,
-                 saturate: bool = False, nb_round: int = 1,
-                 device: torch.device | str = "cpu"):
+    kind = "blocked"  # the family's name in the envelope warning
+    # kernel launches made by the family's runners; each family keeps its
+    # own count (``cell_epoch.launches`` counts them all)
+    launches = 0
+
+    def __init__(self, plans, nu: int, nv: int, mxu: str,
+                 theta_groups: int | None, phi_groups: int | None,
+                 saturate: bool, device: torch.device | str, col_ids=None,
+                 map_u: np.ndarray | None = None,
+                 map_v: np.ndarray | None = None):
         for g in (theta_groups, phi_groups):
             if g is not None and g not in GROUPS:
                 raise ValueError(f"groups must divide the 8 columns, got {g}")
-        self.saturate = saturate
-        self.nu, self.nv = ds.nu, ds.nv
-        self._map_u = self._map_v = None
-        if balance:
-            ds, self._map_u, self._map_v = balance_cells(ds, tile_u, tile_v)
-        self.mxu_pred = True
-        batch = cdiv(batch, 8) * 8
-        self.plans = [prepare_cells(ds, tile_u, tile_v, batch, seed + 7919 * p)
-                      for p in range(max(1, n_plans))]
-        if nb_round > 1:
-            nbmax = cdiv(max(p.u.shape[0] for p in self.plans),
-                         nb_round) * nb_round
-            self.plans = [pad_plan_nb(p, nbmax) for p in self.plans]
-        self.plan = self.plans[0]
-        self.tile_u, self.tile_v, self.batch = tile_u, tile_v, batch
+        self.plans = plans
+        self.plan = plans[0]
+        self.tile_u, self.tile_v = self.plan.tile_u, self.plan.tile_v
+        self.nu, self.nv = nu, nv
+        self._map_u, self._map_v = map_u, map_v
         self.work_dtype = {"bfloat16": torch.bfloat16,
                            "float32": torch.float32}[mxu]
         self.theta_groups, self.phi_groups = theta_groups, phi_groups
+        self.saturate = saturate
+        self.mxu_pred = True
         self._warned: set = set()
         # element-wise max over every plan the rotation can pick
+        ids = col_ids or (lambda a: a)
         self._dup_max = self._vdup_max = None
         if theta_groups is None:
-            stats = [_dup_stats(p.u, p.tile_u) for p in self.plans]
+            stats = [_dup_stats(ids(p.u), p.tile_u) for p in plans]
             self._dup_max = {g: max(s[g] for s in stats) for g in GROUPS}
         if phi_groups is None:
-            stats = [_dup_stats(p.v, p.tile_v) for p in self.plans]
+            stats = [_dup_stats(ids(p.v), p.tile_v) for p in plans]
             self._vdup_max = {g: max(s[g] for s in stats) for g in GROUPS}
         self.device = torch.device(device)
         self._dev: list = []
         self.dim = None
         self.gb = 0.0
 
-    def materialize(self) -> "CellEpochRunner":
-        """Upload the plans to the runner's device (once)."""
+    def _window_plan(self, plan) -> CellPlan:
+        return plan
+
+    def materialize(self) -> "WindowRunner":
+        """Upload the plans, as window-plan columns, to the runner's device
+        (once)."""
         if not self._dev:
-            self._dev = [upload_plan(p, self.device) for p in self.plans]
+            self._dev = [upload_plan(self._window_plan(p), self.device)
+                         for p in self.plans]
         return self
+
+    def _warn(self, side: str, eta: float, dups: int) -> None:
+        if not self.saturate:
+            warn_window_envelope(self.kind, side, eta, dups, self._warned)
 
     def _pick(self, fixed, dups, side, eta):
         if fixed is not None:
@@ -514,8 +527,7 @@ class CellEpochRunner:
         for g in GROUPS:
             if eta * dups[g] <= 0.2:
                 return g
-        if not self.saturate:
-            warn_window_envelope("blocked", side, eta, dups[8], self._warned)
+        self._warn(side, eta, dups[8])
         return 8
 
     def pick_theta_groups(self, eta: float) -> int:
@@ -532,9 +544,11 @@ class CellEpochRunner:
         """One epoch, in place on the fused tables; returns them."""
         cap = max(1.0, 0.2 / max(eta, 1e-9))
         plan = self.materialize()._dev[epoch_idx % len(self._dev)]
+        launched = cell_epoch.launches
         cell_epoch(tables[0], tables[1], plan, eta, lam, gb, cap, self.dim,
                    self.pick_theta_groups(eta), self.pick_phi_groups(eta),
                    self.work_dtype, self.saturate, self.mxu_pred)
+        type(self).launches += cell_epoch.launches - launched
         return tables
 
     def pad(self, params: MFParams):
@@ -551,3 +565,41 @@ class CellEpochRunner:
         return split_params(tables[0], tables[1], self.nu, self.nv,
                             dim or self.dim, self.gb, self._map_u,
                             self._map_v)
+
+
+class CellEpochRunner(WindowRunner):
+    """Gen-1 cell plans on a device, as ``tpu_mf``'s PallasEpochRunner
+    (the options of ``WindowRunner``, and):
+
+    - ``n_plans`` > 1 rotates independently shuffled plans (seeds
+      seed + 7919 p) by epoch; ``nb_round`` pads them to a common batch
+      count.
+    - ``balance`` relabels ids to even out per-tile loads
+      (``balance_cells``).
+    - t*p is rounded to the working type before the row sum up to 2 lane
+      groups (``mxu_pred``; ``pad`` turns it off past that, as in
+      ``tpu_mf``)."""
+
+    launches = 0
+
+    def __init__(self, ds: RatingsCOO, tile_u: int = 512, tile_v: int = 512,
+                 batch: int = 2048, seed: int = 0, mxu: str = "bfloat16",
+                 theta_groups: int | None = None,
+                 phi_groups: int | None = None, n_plans: int = 1,
+                 balance: bool = False,
+                 saturate: bool = False, nb_round: int = 1,
+                 device: torch.device | str = "cuda"):
+        nu, nv = ds.nu, ds.nv
+        map_u = map_v = None
+        if balance:
+            ds, map_u, map_v = balance_cells(ds, tile_u, tile_v)
+        batch = cdiv(batch, 8) * 8
+        plans = [prepare_cells(ds, tile_u, tile_v, batch, seed + 7919 * p)
+                 for p in range(max(1, n_plans))]
+        if nb_round > 1:
+            nbmax = cdiv(max(p.u.shape[0] for p in plans),
+                         nb_round) * nb_round
+            plans = [pad_plan_nb(p, nbmax) for p in plans]
+        self.batch = batch
+        super().__init__(plans, nu, nv, mxu, theta_groups, phi_groups,
+                         saturate, device, map_u=map_u, map_v=map_v)

@@ -33,7 +33,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from tpu_mf.data.coo import RatingsCOO
+from tpu_mf_torch.data.coo import RatingsCOO
 from tpu_mf_torch.models.mf import MFParams
 from tpu_mf_torch.ops import _build
 from tpu_mf_torch.ops.rows import cdiv, pad_params, row_lanes, split_params
@@ -309,7 +309,7 @@ class DenseEpochRunner:
     def __init__(self, ds: RatingsCOO, tile_u: int | None = None,
                  tile_v: int | None = None, k_cells: int | None = None,
                  mxu: str = "bfloat16", saturate: bool = True,
-                 dim: int | None = None, device: torch.device | str = "cpu"):
+                 dim: int | None = None, device: torch.device | str = "cuda"):
         if tile_u is None or tile_v is None:
             pu, pv = pick_dense_tiles(ds.nu, ds.nv)
             tile_u, tile_v = tile_u or pu, tile_v or pv

@@ -21,8 +21,8 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from tpu_mf.config import TrainConfig
-from tpu_mf.data.coo import RatingsCOO, epoch_batches
+from tpu_mf_torch.config import TrainConfig
+from tpu_mf_torch.data.coo import RatingsCOO, epoch_batches
 from tpu_mf_torch.models.mf import MFParams, init_mf, rmse
 from tpu_mf_torch.ops.rows import MAX_DIM
 from tpu_mf_torch.ops.sgd import sgd_epoch
@@ -108,7 +108,7 @@ def train_mf(
     test_ds: Optional[RatingsCOO] = None,
     params: Optional[MFParams] = None,
     log: Callable[[str], None] = print,
-    device: torch.device | str = "cpu",
+    device: torch.device | str = "cuda",
 ) -> MFParams:
     """Biased-MF SGD training (reference: run(MF&), src/main.cc:36-52).
 
@@ -140,6 +140,55 @@ def train_mf(
         obs.close()
 
 
+def _slot_phase_ladder(cfg, mk, log, start=0):
+    """``tpu_mf``'s slot phase ladder: ``[(first_epoch, runner), ...]``.
+
+    ``mk(sub=None, striped=False)`` returns a candidate runner; probing its
+    envelope uploads nothing (plans reach the device at ``pad``). The
+    phases: the striped plan from its own envelope-clearing epoch, a plain
+    auto-sub plan for the epochs before that, and below it smaller subs
+    (down to 128), each from its own engage epoch until a larger sub's, if
+    it covers 2 epochs or more."""
+    from tpu_mf_torch.ops.sgd_slot import _SUB_CANDIDATES
+
+    def first_env(r):
+        for it in range(start + 1, cfg.iters + 1):
+            if r.envelope_ok(cfg.eta_at(it)):
+                return it
+        return None
+
+    phases = []
+    striped = mk(striped=True)
+    s2 = first_env(striped)
+    first = cfg.iters + 1
+    if s2 is not None:
+        phases.append((s2, striped))
+        first = s2
+        if s2 > start + 1:
+            log(f"# delta-striped slot columns engage at epoch {s2} "
+                f"(eta {cfg.eta_at(s2):g})")
+    if first > start + 1:
+        plain = mk()
+        s1 = first_env(plain)
+        if s1 is not None and s1 < first:
+            phases.insert(0, (s1, plain))
+            first = s1
+    if phases and first > start + 2:
+        auto_sub = phases[0][1].sub
+        for sub in sorted((s for s in _SUB_CANDIDATES if 128 <= s < auto_sub),
+                          reverse=True):
+            if first <= start + 1:
+                break
+            r = mk(sub=sub)
+            e = first_env(r)
+            if e is not None and e <= first - 2:
+                log(f"# small-window slot kernel (sub {r.sub}) engages "
+                    f"at epoch {e} (eta {cfg.eta_at(e):g})")
+                phases.insert(0, (e, r))
+                first = e
+    return phases
+
+
 def _mf_runner_schedule(cfg, train_ds, params, log, start=0):
     """Epoch-indexed schedule ``[(first_epoch, runner), ...]``; each runner
     serves epochs [first_epoch, next phase's first_epoch).
@@ -148,11 +197,12 @@ def _mf_runner_schedule(cfg, train_ds, params, log, start=0):
     1. an item table past ``pallas_eligible``: ``tpu_mf`` shards it
        (``ops/phi_shard.py``, not ported: the batched path runs);
     2. the dense-cell runner, from its engagement epoch;
-    3. dims the lane-packed / slot-major kernels take (not ported: the
-       batched path runs until dense engages);
-    4. otherwise the gen-1 cell runner until dense engages.
-    On a CUDA device the kernels work in bf16, on the CPU in f32."""
-    from tpu_mf_torch.ops.routing import packed_eligible, slot_eligible
+    3. at dim <= 61, the slot-major ladder (``_slot_phase_ladder``) from
+       the first epoch whose eta clears its staleness envelope, unless the
+       pigeonhole bound ``slot_dup_lower_bound`` rules out every epoch;
+    4. before that, the lane-packed runner at dim <= 62, else gen-1.
+    Dense takes over from its engagement epoch. On a CUDA device the
+    kernels work in bf16, on the CPU in f32."""
     from tpu_mf_torch.ops.sgd_cells import (
         CellEpochRunner,
         pallas_eligible,
@@ -163,16 +213,22 @@ def _mf_runner_schedule(cfg, train_ds, params, log, start=0):
         dense_eligible,
         dense_engage_epoch,
     )
+    from tpu_mf_torch.ops.sgd_packed import PackedEpochRunner, packed_eligible
+    from tpu_mf_torch.ops.sgd_slot import (
+        SlotEpochRunner,
+        slot_dup_lower_bound,
+        slot_eligible,
+    )
 
     device = params.theta.device
     work = "bfloat16" if device.type == "cuda" else "float32"
     n_plans = 2 if cfg.iters > 1 else 1  # between-epoch reshuffling
-    batched = BatchedRunner(train_ds, cfg.batch_size, cfg.seed)
     if not pallas_eligible(params, cfg.batch_size):
         log(f"# item-sharded kernel (ops/phi_shard.py) not yet ported "
             f"(ROADMAP Queue 1 item 6): epochs {start + 1}..{cfg.iters} use "
             "the batched path")
-        return [(start + 1, batched)]
+        return [(start + 1, BatchedRunner(train_ds, cfg.batch_size,
+                                          cfg.seed))]
 
     dense_from = None
     if cfg.use_dense and dense_eligible(params, train_ds):
@@ -189,26 +245,66 @@ def _mf_runner_schedule(cfg, train_ds, params, log, start=0):
                 f"(eta {cfg.eta_at(dense_from):g}, k_cells "
                 f"{dense_r.k_cells})")
 
-    def with_dense(runner):
-        sched = [(start + 1, runner)]
-        return sched if dense_from is None else sched + [(dense_from, dense_r)]
+    phases = []
+    if slot_eligible(params, cfg.batch_size):
+        lb, _ = slot_dup_lower_bound(train_ds, dim=cfg.dim, balance=True)
+        if cfg.eta_at(cfg.iters) * lb <= 0.2:
+            def mk(sub=None, striped=False):
+                return SlotEpochRunner(
+                    train_ds, seed=cfg.seed, n_plans=n_plans, dim=cfg.dim,
+                    balance=True, saturate=True, striped=striped, sub=sub,
+                    mxu=work, device=device)
 
-    last = cfg.iters if dense_from is None else dense_from - 1
-    if (slot_eligible(params, cfg.batch_size)
-            or packed_eligible(params, cfg.batch_size)):
-        log(f"# lane-packed and slot-major kernels (ops/pallas_sgd_packed.py, "
-            f"ops/pallas_sgd_slot.py) not yet ported (ROADMAP Queue 1 item "
-            f"5): epochs {start + 1}..{last} use the batched path")
-        return with_dense(batched)
+            phases = _slot_phase_ladder(cfg, mk, log, start)
+        if not phases and dense_from is None:
+            log("# slot kernel staleness envelope exceeded at every epoch's "
+                "eta; using the lane-packed kernel")
 
-    # tpu_mf picks this geometry at every dim that reaches here
-    tu, tv, b = pick_cell_geometry(train_ds)
-    runner = CellEpochRunner(train_ds, tile_u=tu, tile_v=tv, batch=b,
-                             seed=cfg.seed, n_plans=n_plans, balance=True,
-                             saturate=True, mxu=work, device=device)
-    log(f"# gen-1 cell kernel: epochs {start + 1}..{last}, tiles {tu}x{tv}, "
-        f"batch {b}, {n_plans} plan(s) of {runner.plan.u.shape[0]} batches")
-    return with_dense(runner)
+    def with_dense(sched):
+        if dense_from is None:
+            return sched
+        return [p for p in sched if p[0] < dense_from] + [
+            (dense_from, dense_r)]
+
+    if phases and phases[0][0] <= start + 1:
+        return _log_slot_phases(with_dense(phases), cfg, log)
+    if phases:
+        log(f"# slot kernel envelope clears at epoch {phases[0][0]} "
+            f"(eta {cfg.eta_at(phases[0][0]):g}); packed kernel until then")
+
+    last = min([cfg.iters + 1] + [e for e, _ in phases]
+               + ([dense_from] if dense_from else [])) - 1
+    if packed_eligible(params, cfg.batch_size):
+        runner = PackedEpochRunner(
+            train_ds, batch=max(8192, cfg.batch_size), seed=cfg.seed,
+            n_plans=n_plans, dim=cfg.dim, saturate=True, mxu=work,
+            device=device)
+        name = "lane-packed"
+    else:
+        # tpu_mf picks this geometry at every dim that reaches here
+        tu, tv, b = pick_cell_geometry(train_ds)
+        runner = CellEpochRunner(train_ds, tile_u=tu, tile_v=tv, batch=b,
+                                 seed=cfg.seed, n_plans=n_plans, balance=True,
+                                 saturate=True, mxu=work, device=device)
+        name = "gen-1 cell"
+    log(f"# {name} kernel: epochs {start + 1}..{last}, tiles "
+        f"{runner.tile_u}x{runner.tile_v}, batch {runner.batch}, "
+        f"{n_plans} plan(s) of {runner.plan.u.shape[0]} batches")
+    return _log_slot_phases(with_dense([(start + 1, runner)] + phases), cfg,
+                            log)
+
+
+def _log_slot_phases(sched, cfg, log):
+    """Log the geometry of each slot phase the schedule keeps."""
+    from tpu_mf_torch.ops.sgd_slot import SlotEpochRunner
+
+    ends = [ep - 1 for ep, _ in sched[1:]] + [cfg.iters]
+    for (ep, r), last in zip(sched, ends):
+        if isinstance(r, SlotEpochRunner):
+            log(f"# slot kernel{' (striped)' if r.striped else ''}: epochs "
+                f"{ep}..{last}, sub {r.sub}, tiles {r.tile_u}x{r.tile_v}, "
+                f"{len(r.plans)} plan(s) of {r.plan.u.shape[0]} batches")
+    return sched
 
 
 def _train_mf_fused(cfg, train_ds, test_ds, params, log, obs,
@@ -232,7 +328,8 @@ def _run_schedule(cfg, sched, test_ds, params, log, obs,
     for it in range(start + 1, cfg.iters + 1):
         while upcoming and it >= upcoming[0][0]:
             nxt = upcoming.pop(0)[1]
-            log(f"# epoch {it}: switching to {type(nxt).__name__}")
+            log(f"# epoch {it}: switching to {type(nxt).__name__}"
+                f"{' (striped)' if getattr(nxt, 'striped', False) else ''}")
             tables = nxt.pad(runner.trim(tables))
             runner = nxt
         tables = runner.epoch(tables, cfg.eta_at(it), cfg.lam, gb,
