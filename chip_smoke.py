@@ -38,7 +38,23 @@ Phases (each prints its own lines; any failure exits non-zero):
  10. one full epoch of each phase of that schedule (packed at epoch 1,
      each slot phase at its first epoch), plain version, kernel, kernel,
      plain version from the same initial tables, timed with CUDA events
-     and held to each other as in phase 9.
+     and held to each other as in phase 9;
+ 11. the two SGLD kernels against their plain versions on the card, both
+     working types, at temp 0 and temp 1 (the same normals or ring on both
+     sides), stamps equal as integers: one gen-1 round at dim 128 on 6x6
+     tiles of 512x512 at ML-10M density, and slot rounds at dim 8 on 6x6
+     tiles of 1024x1024 (plain plans at noise_every 8, striped at 1 and 8);
+ 12. the DP-SGLD main path: ``tpu_mf_torch.train.train_dpmf`` on ``cuda``,
+     3 rounds at dim 128 (the reference default), temp 1,
+     eta = SCAL_DP / ntrain, hyperb 1000: the gen-1 SGLD runner must carry
+     every round, RMSE and tRMSE must be finite, tRMSE below the initial
+     tables'; then one round from the initial state, plain version,
+     kernel, kernel, plain version at temp 1 (held to max_abs_err) and
+     kernel and plain version at temp 0 (held as in phase 9), timed with
+     CUDA events;
+ 13. the same at dim 8: the striped slot SGLD runner every round;
+ 14. phase 12's state written as the dpmf checkpoint {result}_3, read back
+     with ``load_dpmf_binary`` and checked.
 
 The last lines are the kernels' JSON summary (time, launches on the main
 path, bound), the card's name and power limit, and {"ok": true, "device":
@@ -94,7 +110,21 @@ ATOL_LADDER_REPLAY = ATOL_CELL_FULL
 # is skipped gives 1, one of the wrong sign 2, and an eta 10% off 0.1; the
 # readings were 2e-5 to 1e-3 (PERF.md)
 REL_FULL = 1e-2
-KERNELS = ("dense_cell", "cell_sgd")
+# the SGLD kernels against their plain versions (phases 11-13): the
+# window-plan reasons and tolerances (both sides draw the same normals)
+ATOL_SGLD = ATOL_CELL
+# phases 12-13: one full ML-10M-shape round, bf16, the per-element bound
+# carried by later updates of the same rows (as ATOL_CELL_FULL)
+ATOL_SGLD_FULL = ATOL_CELL_FULL
+# the DP-SGLD runs: the reference's default dim and a rank-8 run
+DIM_DP, DIM_DP8, ROUNDS = 128, 8, 3
+# their step scal = eta * ntrain * bound * lambda_r at lambda_r = 1 (bound 1).
+# A gen-1 window is one column, and a row repeated k times in it takes k
+# steps from the same point: the stand-in's columns repeat a user up to 149
+# times (items 108), so scal * 149 must stay near 0.2 or the biases
+# overshoot and the round diverges (scal = 0.05 gave NaN in round 1)
+SCAL_DP = 1e-3
+KERNELS = ("dense_cell", "cell_sgd", "sgld_cells")
 # the card's published peaks (H100 SXM data sheet, at 700 W): memory bytes/s,
 # bf16 tensor-core and float32 CUDA-core operations/s
 HBM_BYTES_S, PEAK_BF16, PEAK_F32 = 3.35e12, 989e12, 67e12
@@ -132,6 +162,48 @@ def window_bound(plan, rows_u, rows_v, n_real, dim):
     nbytes = (12 * n_real + 4 * (plan.gu.numel() + 2 * plan.gv.numel())
               + 2 * 4 * (rows_u + rows_v) * (dim + 3))
     return bound(nbytes, 6 * n_real * (dim + 2), PEAK_F32)
+
+
+def sgld_bound(runner, plan, n_real, dim, slot):
+    """A window-plan round's bytes and operations (``window_bound``), plus
+    each table row's stamp (8 bytes) and inverse frequency (4) read once
+    and the stamp written once, and the noise and the decay: one normal
+    per kept lane (dim + 1) of each row a noise injection touches (two hash
+    words of two finalizer rounds and Box-Muller, counted as 25
+    operations) and a log and an exp per kept lane of each row an apply
+    decays (4 operations). Rows are counted from this plan's real slots:
+    per batch (slot mode; noise on the noise batches) or per batch for the
+    noise and per column for the decay (gen-1 mode)."""
+    import torch
+
+    cp = plan.cells
+    p = runner.plan
+    rows_u, rows_v = p.n_gu * p.tile_u, p.n_gv * p.tile_v
+    nb = cp.u.shape[0]
+    real = cp.w > 0
+    dev = cp.u.device
+    b = torch.arange(nb, device=dev)[:, None, None].expand_as(real)
+    col = b * 8 + torch.arange(8, device=dev)[None, :, None]
+    gu = cp.gu.long()[:, None, None] * p.tile_u + cp.u
+    gv = cp.gv.long()[:, :, None] * p.tile_v + cp.v
+    total = rows_u + rows_v
+
+    def distinct(window, mask):
+        keys = torch.cat([(window * total + gu)[mask],
+                          (window * total + rows_u + gv)[mask]])
+        return int(torch.unique(keys).numel())
+
+    if slot:
+        ne = runner.noise_every
+        noise = distinct(b, real & (b % ne == ne - 1))
+        decay = distinct(b, real)
+    else:
+        noise, decay = distinct(b, real), distinct(col, real)
+    nbytes = (12 * n_real + 4 * (cp.gu.numel() + 2 * cp.gv.numel())
+              + 2 * 4 * total * (dim + 3) + (16 + 4) * total)
+    ops = (6 * n_real * (dim + 2) + 25 * (dim + 1) * noise
+           + 4 * (dim + 1) * decay)
+    return bound(nbytes, ops, PEAK_F32)
 
 
 def calibrated_ml10m(seed: int = 0):
@@ -651,6 +723,248 @@ def phase_checkpoint(torch, cfg, params):
     log(f"# phase 5: checkpoint model_{cfg.iters} ({size} bytes) reads back")
 
 
+def dp_state(torch, ds, dim, gb, seed=0):
+    from tpu_mf_torch.models.dpmf import init_dpmf
+
+    return init_dpmf(ds, dim, gb, torch.Generator().manual_seed(seed), DEVICE)
+
+
+def plain_round(tg, tss, runner, tables, clock0, hyper, noise_seed,
+                epoch_idx=0, ring=None):
+    """What ``runner.epoch`` launches, through the plain version."""
+    plan = runner.materialize()._dev[epoch_idx % len(runner._dev)]
+    if isinstance(runner, tss.SlotSgldRunner):
+        if ring is None:
+            ring = tss.slot_ring(noise_seed, runner.tile_u, runner.tile_v,
+                                 DEVICE)
+        tss.sgld_slot_epoch_reference(
+            *tables, *runner.invf, runner.lam, plan, clock0, hyper,
+            runner.dim, noise_seed, ring, runner.pack, runner.noise_every,
+            tss.saturation_cap(hyper[3]), runner.work_dtype)
+    else:
+        tg.sgld_cell_epoch_reference(
+            *tables, *runner.invf, runner.lam, plan, clock0, hyper,
+            runner.dim, noise_seed, runner.work_dtype)
+
+
+def sgld_err(torch, got, want):
+    """(largest table difference, stamps equal as integers)."""
+    err = max(float((a - b).abs().max()) for a, b in zip(got[:2], want[:2]))
+    return err, all(torch.equal(a, b) for a, b in zip(got[2:], want[2:]))
+
+
+def compare_sgld(torch, tg, tss, make, ds, dim, name, what):
+    """An SGLD runner's kernel vs its plain version, one round per working
+    type at temp 0 and temp 1 from init_dpmf's state; returns the largest
+    error per working type."""
+    gb = ds.mean_rating()
+    errs = {}
+    for mxu in ("float32", "bfloat16"):
+        r = make(mxu)
+        for temp in (0.0, 1.0):
+            state = dp_state(torch, ds, dim, gb)
+            eta = 0.05 / len(ds)
+            hyper = (eta, temp, 1.0, eta * len(ds), gb)
+            got = r.pad(state)
+            want = tuple(t.clone() for t in got)
+            plain_round(tg, tss, r, want, 0, hyper, 11)
+            r.epoch(got, 0, hyper, noise_seed=11)
+            torch.cuda.synchronize()
+            err, stamps = sgld_err(torch, got, want)
+            errs[mxu] = max(errs.get(mxu, 0.0), err)
+            log(f"# phase 11: {name} vs plain, {mxu}, temp {temp:g}, {what}, "
+                f"{r.plan.u.shape[0]} batches, dim {dim}, {len(ds)} ratings: "
+                f"max_abs_err {err:.3e} (atol {ATOL_SGLD[mxu]:g}), stamps "
+                f"{'equal' if stamps else 'DIFFER'}")
+            if not (err <= ATOL_SGLD[mxu] and stamps):
+                raise AssertionError(f"{name} disagrees ({mxu}, temp {temp})")
+    return errs
+
+
+def phase_compare_sgld(torch, tg, tss, rng):
+    ds, _ = corner(rng, 512, 512)
+    errs = {"sgld": compare_sgld(
+        torch, tg, tss, lambda mxu: tg.SgldCellRunner(
+            ds, tile_u=512, tile_v=512, batch=8192, mxu=mxu, device=DEVICE),
+        ds, DIM_DP, "sgld", "batch 8192 at tiles 512x512")}
+    ds, _ = corner(rng, 1024, 1024)
+    errs["slot_sgld"] = {}
+    for striped, ne in ((False, 8), (True, 1), (True, 8)):
+        e = compare_sgld(
+            torch, tg, tss, lambda mxu: tss.SlotSgldRunner(
+                ds, dim=DIM_DP8, mxu=mxu, striped=striped, noise_every=ne,
+                device=DEVICE),
+            ds, DIM_DP8, "slot_sgld",
+            f"{'striped' if striped else 'plain'} plans, noise_every {ne}")
+        for k, v in e.items():
+            errs["slot_sgld"][k] = max(errs["slot_sgld"].get(k, 0.0), v)
+    return errs
+
+
+def run_dpmf(torch, train, test, phase, dim):
+    """train_dpmf on cuda with every kernel count set to 0 just before; the
+    per-round launch counts read just after. RMSE and tRMSE must be finite
+    every round and tRMSE below the initial tables'."""
+    from tpu_mf_torch.config import TrainConfig
+    from tpu_mf_torch.models.mf import rmse
+    from tpu_mf_torch.ops import sgld_cells as tg
+    from tpu_mf_torch.ops import sgld_slot as tss
+    from tpu_mf_torch.train import train_dpmf
+
+    cfg = TrainConfig(alg="dpmf", dim=dim, iters=ROUNDS,
+                      eta=SCAL_DP / len(train),
+                      hyperb=1000.0, gb=train.mean_rating())
+    rm_init = rmse(dp_state(torch, train, dim, cfg.gb, cfg.seed).params, test)
+    counts = {**counters(), "sgld": tg.SgldCellRunner,
+              "slot_sgld": tss.SlotSgldRunner}
+    wrappers = (tg.sgld_cell_epoch, tss.sgld_slot_epoch)
+    lines, marks = [], []
+
+    def record(line):
+        lines.append(line)
+        log(line)
+        if line.startswith("round #"):
+            marks.append({k: c.launches for k, c in counts.items()})
+
+    for c in list(counts.values()) + list(wrappers):
+        c.launches = 0
+    t = time.perf_counter()
+    state = train_dpmf(cfg, train, test, log=record, device=DEVICE)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    per_round = {k: [b[k] - a[k] for a, b in zip([dict.fromkeys(counts, 0)]
+                                                 + marks, marks)]
+                 for k in counts}
+    if [w.launches for w in wrappers] != [sum(per_round["sgld"]),
+                                           sum(per_round["slot_sgld"])]:
+        raise AssertionError("an SGLD launch outside the runners")
+    log(f"# phase {phase}: train_dpmf(dim={dim}) on cuda, {ROUNDS} rounds in "
+        f"{wall:.1f} s (set-up included); launches per round "
+        + ", ".join(f"{k} {v}" for k, v in per_round.items()))
+    rows = [x.split("\t") for x in lines if x.startswith("round #")]
+    rmse_tr = [float(x[1].split("=")[1]) for x in rows]
+    rm = [float(x[2].split("=")[1]) for x in rows]
+    log(f"# phase {phase}: initial tables' tRMSE {rm_init:.6f}")
+    if any("batched path" in x for x in lines):
+        raise AssertionError("a round left the fused kernel")
+    if not (len(rm) == ROUNDS and all(map(math.isfinite, rm + rmse_tr))
+            and max(rm) < rm_init):
+        raise AssertionError(f"RMSE {rmse_tr} / tRMSE {rm} not finite or "
+                             f"not below the initial {rm_init}")
+    return cfg, state, rm, per_round
+
+
+def time_dpmf_round(torch, tg, tss, cfg, train, test, phase, name):
+    """One full round from the initial state through the main path's
+    runner: plain version, kernel, kernel, plain version at temp 1 (held
+    to max_abs_err, stamps equal), then kernel and plain version at temp 0
+    (held as in phase 9), timed with CUDA events; returns the median round
+    ms of the kernel and of the plain version at temp 1, and the bound."""
+    import dataclasses
+
+    from tpu_mf_torch.models.dpmf import dp_bound
+    from tpu_mf_torch.models.mf import MFParams, rmse
+    from tpu_mf_torch.train.loop import _dpmf_runner
+
+    init = dp_state(torch, train, cfg.dim, cfg.gb, cfg.seed)
+    t = time.perf_counter()
+    runner = _dpmf_runner(cfg, train, init, lambda _: None, DEVICE)
+    slot = isinstance(runner, tss.SlotSgldRunner)
+    runner.materialize()
+    torch.cuda.synchronize()
+    log(f"# phase {phase}: {type(runner).__name__} rebuilt and staged in "
+        f"{time.perf_counter() - t:.1f} s: {runner.plan.u.shape[0]} batches"
+        + (f", sub {runner.sub}" if slot else f" of {runner.batch}")
+        + f", tiles {runner.tile_u}x{runner.tile_v}")
+    n = len(train)
+    bnd = dp_bound(cfg.epsilon, cfg.tau, train.nv)
+    eta = cfg.eta_at_cutoff(1)
+    seed = cfg.seed * 1_000_003 + runner.seed_stride
+    times, outs = {"kernel": [], "plain": []}, {}
+    for temp, order in ((1.0, ("plain", "kernel", "kernel", "plain")),
+                        (0.0, ("kernel", "plain"))):
+        hyper = (eta, temp, bnd, eta * n * bnd * float(init.lambda_r),
+                 float(init.params.gb))
+        for which in order:
+            tabs = runner.pad(init)
+            a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            a.record()
+            if which == "kernel":
+                runner.epoch(tabs, 0, hyper, noise_seed=seed)
+            else:
+                plain_round(tg, tss, runner, tabs, 0, hyper, seed)
+            b.record()
+            torch.cuda.synchronize()
+            if temp:
+                times[which].append(a.elapsed_time(b))
+            outs.setdefault((temp, which), tabs)
+    for what, ts in times.items():
+        log(f"# phase {phase}: {name} {what} at temp 1: round ms "
+            f"{[round(x, 3) for x in ts]}, rating updates/s "
+            f"{[round(n / (x / 1e3)) for x in ts]}")
+    err, stamps = sgld_err(torch, outs[1.0, "kernel"], outs[1.0, "plain"])
+    log(f"# phase {phase}: {name} round 1 at temp 1, kernel vs plain: "
+        f"max_abs_err {err:.3e} (atol {ATOL_SGLD_FULL:g}), stamps "
+        f"{'equal' if stamps else 'DIFFER'}")
+    if not (err <= ATOL_SGLD_FULL and stamps):
+        raise AssertionError(f"{name}: kernel and plain disagree at temp 1")
+
+    def params(tabs):
+        return runner.unpack(init, tabs).params
+
+    got, want = params(outs[0.0, "kernel"]), params(outs[0.0, "plain"])
+    hold(f"{name} round 1 at temp 0, kernel vs plain", got, want,
+         init.params, ATOL_SGLD_FULL, phase)
+    rm_k, rm_p = rmse(got, test), rmse(want, test)
+    log(f"# phase {phase}: {name} tRMSE after round 1 at temp 0: kernel "
+        f"{rm_k:.6f} plain {rm_p:.6f}")
+    if not abs(rm_k - rm_p) <= 1e-3:
+        raise AssertionError(f"{name}: tRMSE of kernel and plain disagree")
+    plan = runner._dev[0]
+    return (median(times["kernel"]), median(times["plain"]),
+            sgld_bound(runner, plan, n, cfg.dim, slot))
+
+
+def phase_dpmf(torch, tg, tss, train, test, phase, dim, family):
+    """Phases 12 and 13: the main path, then its round timed."""
+    cfg, state, _, per_round = run_dpmf(torch, train, test, phase, dim)
+    launches = only(per_round, family, range(1, ROUNDS + 1))
+    for k in per_round:
+        if k != family:
+            only(per_round, k, ())
+    timed = time_dpmf_round(torch, tg, tss, cfg, train, test, phase, family)
+    return cfg, state, launches, timed
+
+
+def phase_checkpoint_dpmf(torch, cfg, state):
+    from tpu_mf_torch.io.checkpoint import load_dpmf_binary, save_dpmf_binary
+
+    lam = [float(state.lambda_r), float(state.lambda_ub),
+           float(state.lambda_vb)]
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, f"model_{cfg.iters}")
+        save_dpmf_binary(path, state.params, *lam,
+                         state.lambda_u.cpu().numpy(),
+                         state.lambda_v.cpu().numpy())
+        back, hyper = load_dpmf_binary(path, gb=cfg.gb, device=DEVICE)
+        size = os.path.getsize(path)
+    want = 12 + 4 * (3 + 2 * DIM_DP) + 4 * (N_USERS + N_ITEMS) * (DIM_DP + 1)
+    if size != want or list(hyper[:3]) != [float(torch.tensor(x))
+                                           for x in lam]:
+        raise AssertionError(f"dpmf checkpoint size {size} != {want} or "
+                             "precisions")
+    if not (torch.equal(torch.as_tensor(hyper[3]), state.lambda_u.cpu())
+            and torch.equal(torch.as_tensor(hyper[4]), state.lambda_v.cpu())):
+        raise AssertionError("lambda_u / lambda_v do not read back")
+    for a, b in zip(back[:4], state.params[:4]):
+        if a.shape != b.shape or not torch.equal(a, b.contiguous()):
+            raise AssertionError("dpmf checkpoint does not read back")
+        if not bool(torch.isfinite(a).all()):
+            raise AssertionError("non-finite tables")
+    log(f"# phase 14: dpmf checkpoint model_{cfg.iters} ({size} bytes) reads "
+        "back")
+
+
 def entry(name, replaces, launches, err, timed, source=None):
     ms, plain_ms, (bound_ms, bound_by) = timed
     return {"name": name, "route": "cuda",
@@ -658,7 +972,7 @@ def entry(name, replaces, launches, err, timed, source=None):
             "replaces": replaces, "launches": launches, "max_abs_err": err,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by,
-            # no single PyTorch call computes an SGD epoch
+            # no single PyTorch call computes an SGD or SGLD epoch
             "library_ms": None}
 
 
@@ -675,6 +989,8 @@ def main() -> int:
     from tpu_mf_torch.ops import sgd_dense as td
     from tpu_mf_torch.ops import sgd_packed as tpk
     from tpu_mf_torch.ops import sgd_slot as tsl
+    from tpu_mf_torch.ops import sgld_cells as tg
+    from tpu_mf_torch.ops import sgld_slot as tss
 
     card = phase_build()
     errs = phase_compare(torch, td, np.random.default_rng(0))
@@ -696,11 +1012,18 @@ def main() -> int:
                                       lrm, geo_packed, geo_slots)
     packed_t, slot_t = phase_time_ladder(torch, tc, lcfg, train, test, init,
                                          sched)
+    sgld_errs = phase_compare_sgld(torch, tg, tss, np.random.default_rng(3))
+    dcfg, dstate, sgld_launches, sgld_t = phase_dpmf(
+        torch, tg, tss, train, test, 12, DIM_DP, "sgld")
+    _, _, slot_sgld_launches, slot_sgld_t = phase_dpmf(
+        torch, tg, tss, train, test, 13, DIM_DP8, "slot_sgld")
+    phase_checkpoint_dpmf(torch, dcfg, dstate)
     bad = sorted(m for m in sys.modules
                  if m.split(".")[0] in ("jax", "jaxlib", "tpu_mf"))
     if bad:
         raise AssertionError(f"the port imported JAX or tpu_mf: {bad[:5]}")
     cell_src = "tpu_mf_torch/csrc/cell_sgd.cu"
+    sgld_src = "tpu_mf_torch/csrc/sgld_cells.cu"
     log(json.dumps({"kernels": [
         entry("dense_cell", "tpu_mf/ops/pallas_sgd_dense.py:239", launches,
               errs["bfloat16"], dense_t),
@@ -710,6 +1033,11 @@ def main() -> int:
               lerrs["packed"]["bfloat16"], packed_t, cell_src),
         entry("slot", "tpu_mf/ops/pallas_sgd_slot.py:606", slaunches,
               lerrs["slot"]["bfloat16"], slot_t, cell_src),
+        entry("sgld", "tpu_mf/ops/pallas_sgld.py:120", sgld_launches,
+              sgld_errs["sgld"]["bfloat16"], sgld_t, sgld_src),
+        entry("slot_sgld", "tpu_mf/ops/pallas_sgld_slot.py:59",
+              slot_sgld_launches, sgld_errs["slot_sgld"]["bfloat16"],
+              slot_sgld_t, sgld_src),
     ]}))
     log(card)
     log(json.dumps({"ok": True, "device": {

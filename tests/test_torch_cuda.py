@@ -209,3 +209,114 @@ def test_train_mf_dim8_no_dense_runs_the_ladder(cuda):
     assert "# epoch 5: switching to SlotEpochRunner (striped)" in log, log
     rm = [float(x.split("tRMSE=")[1]) for x in log if "tRMSE=" in x]
     assert np.all(np.isfinite(rm)) and rm[-1] < rm[0], rm
+
+
+def np_dpmf_state(ds, dim, seed, gb=3.0, stamps=0):
+    """A DPMF state from numpy (tables, precisions near tpu_mf's inits, the
+    inverse frequencies of ds, counters at ``stamps``)."""
+    from tpu_mf_torch.models.dpmf import inverse_frequency
+
+    theta, phi, bu, bv, gbv = np_tables(ds.nu, ds.nv, dim, seed, gb)
+    ur, vr = inverse_frequency(ds)
+    rng = np.random.default_rng(seed + 1)
+    return dict(theta=theta, phi=phi, bu=bu, bv=bv, gb=gbv, lambda_r=1.0,
+                lambda_ub=100.0, lambda_vb=80.0,
+                lambda_u=rng.uniform(50, 150, dim),
+                lambda_v=rng.uniform(50, 150, dim), ur=ur, vr=vr,
+                gcountu=np.full(ds.nu + 1, stamps),
+                gcountv=np.full(ds.nv + 1, stamps), gcount=stamps)
+
+
+def sgld_hyper(ds, temp, scal=0.02, gb=3.0):
+    """(eta, temp, bound, scal, gb) with eta such that scal is the step at
+    lambda_r = 1."""
+    eta = scal / len(ds)
+    return (eta, temp, 1.0, scal, gb)
+
+
+def held(got, want, atol):
+    """Tables within atol, stamps equal as integers."""
+    for a, b in zip(got[:2], want[:2]):
+        assert float((a - b).abs().max()) <= atol
+    for a, b in zip(got[2:], want[2:]):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+# dim 300: past tpu_mf's 251, routed to this kernel all the same
+@pytest.mark.parametrize("dim", [8, 128, 300])
+@pytest.mark.parametrize("temp", [0.0, 1.0])
+@pytest.mark.parametrize("mxu,atol", [
+    # f32: the same terms, summed by atomics in another order
+    ("float32", 1e-4),
+    # bf16: a row or an err*p rounding may flip where the f32 value differs
+    # in its last bit; one bf16 step of an update
+    ("bfloat16", 2e-3),
+])
+def test_sgld_cell_kernel_matches_reference(cuda, mxu, atol, temp, dim):
+    """sgld_cell_epoch against sgld_cell_epoch_reference on the card (the
+    same counter-based normals on both sides), ragged tiles (96 x 80),
+    zipfy data, stamps offset past 2^31; stamps equal as integers."""
+    from tpu_mf_torch.models.dpmf import dpmf_state_from_numpy
+    from tpu_mf_torch.ops import sgld_cells as tg
+
+    ds = synthetic_ratings(500, 400, 40000, rank=3, noise=0.3, seed=5,
+                           zipf=1.0, zipf_q=20.0)
+    base = (1 << 31) + 5
+    state = dpmf_state_from_numpy(np_dpmf_state(ds, dim, 6, stamps=base),
+                                  cuda)
+    r = tg.SgldCellRunner(ds, tile_u=96, tile_v=80, batch=1024, seed=7,
+                          mxu=mxu, device=cuda)
+    hyper = sgld_hyper(ds, temp)
+    got = r.pad(state)
+    want = tuple(t.clone() for t in got)
+    tg.sgld_cell_epoch_reference(*want, *r.invf, r.lam, r._dev[0], base,
+                                 hyper, dim, 11, r.work_dtype)
+    before, fam = tg.sgld_cell_epoch.launches, tg.SgldCellRunner.launches
+    r.epoch(got, base, hyper, noise_seed=11)
+    torch.cuda.synchronize()
+    assert tg.sgld_cell_epoch.launches == before + 1
+    assert tg.SgldCellRunner.launches == fam + 1
+    held(got, want, atol)
+    start = r.pad(state)
+    assert float((got[0] - start[0]).abs().max()) > 1e-3  # it trained
+    assert int(got[2].max()) == base + len(ds)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dim", [8, 26])
+@pytest.mark.parametrize("temp", [0.0, 1.0])
+@pytest.mark.parametrize("plan,noise_every", [("plain", 8), ("striped", 1)])
+@pytest.mark.parametrize("mxu,atol", [("float32", 1e-4), ("bfloat16", 2e-3)])
+def test_slot_sgld_kernel_matches_reference(cuda, mxu, atol, plan,
+                                            noise_every, temp, dim):
+    """sgld_slot_epoch against sgld_slot_epoch_reference on the card (the
+    same ring on both sides), plain and striped plans with the serpentine
+    balance map, saturating, at P 8 (dim 8) and P 4 (dim 26); stamps equal
+    as integers. The tolerances of test_sgld_cell_kernel_matches_reference."""
+    from tpu_mf_torch.models.dpmf import dpmf_state_from_numpy
+    from tpu_mf_torch.ops import sgld_slot as tss
+
+    ds = synthetic_ratings(500, 400, 40000, rank=3, noise=0.3, seed=5,
+                           zipf=1.0, zipf_q=20.0)
+    state = dpmf_state_from_numpy(np_dpmf_state(ds, dim, 6, stamps=3), cuda)
+    striped = plan == "striped"
+    r = tss.SlotSgldRunner(ds, sub=64 if striped else 32, seed=7, mxu=mxu,
+                           dim=dim, striped=striped, noise_every=noise_every,
+                           device=cuda)
+    hyper = sgld_hyper(ds, temp, scal=0.05)
+    ring = tss.slot_ring(13, r.tile_u, r.tile_v, cuda)
+    cap = tss.saturation_cap(hyper[3])
+    got = r.pad(state)
+    want = tuple(t.clone() for t in got)
+    tss.sgld_slot_epoch_reference(*want, *r.invf, r.lam, r._dev[0], 3, hyper,
+                                  dim, 13, ring, r.pack, noise_every, cap,
+                                  r.work_dtype)
+    before, fam = tss.sgld_slot_epoch.launches, tss.SlotSgldRunner.launches
+    r.epoch(got, 3, hyper, noise_seed=13, ring=ring)
+    torch.cuda.synchronize()
+    assert tss.sgld_slot_epoch.launches == before + 1
+    assert tss.SlotSgldRunner.launches == fam + 1
+    held(got, want, atol)
+    start = r.pad(state)
+    assert float((got[0] - start[0]).abs().max()) > 1e-3  # it trained

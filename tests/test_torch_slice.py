@@ -347,9 +347,12 @@ def test_cli_metrics_and_trace(tmp_path):
 
 def test_port_runs_without_jax(tmp_path):
     """A fresh interpreter in which tpu_mf cannot be imported runs the CPU
-    slice through the CLI and the fused dim-8 schedule (packed, then dense)
-    on CPU tensors, and imports neither JAX nor any module of tpu_mf."""
+    slice through the CLI (--alg mf and --alg dpmf) and the fused dim-8
+    schedule (packed, then dense) on CPU tensors, and imports neither JAX
+    nor any module of tpu_mf."""
     args = write_data(tmp_path) + ["--device", "cpu"]
+    dp_args = args + ["--alg", "dpmf", "--eta", "2e-5", "--hyperb", "1000",
+                      "--result", str(tmp_path / "dp")]
     code = f"""
 import sys
 sys.modules["tpu_mf"] = None  # any import of the JAX package fails
@@ -360,6 +363,7 @@ from tpu_mf_torch.models.mf import init_mf
 from tpu_mf_torch.train.loop import _Observer, _train_mf_fused
 import torch
 assert main({args!r}) == 0
+assert main({dp_args!r}) == 0
 tr, te = synthetic_ratings(200, 150, 6000, rank=3, noise=0.2,
                            seed=0).split(0.1, seed=1)
 cfg = TrainConfig(dim=8, iters=2, eta=0.04, gam=2.0, gb=tr.mean_rating())
@@ -376,6 +380,8 @@ assert bad == ["tpu_mf"] and sys.modules["tpu_mf"] is None, bad
     assert proc.returncode == 0, proc.stderr[-2000:]
     assert proc.stdout.count("iter#2") == 2
     assert "# lane-packed kernel: epochs 1..1" in proc.stdout
+    assert proc.stdout.count("round #2\t") == 1
+    assert (tmp_path / "dp_2").stat().st_size > 0
 
 
 def test_cli_cuda_without_gpu_fails(tmp_path):
@@ -389,16 +395,22 @@ def test_cli_cuda_without_gpu_fails(tmp_path):
 
 
 def test_entry_points_default_to_cuda():
-    """train_mf, the checkpoint loader and every runner run on the card
-    unless the caller asks for the CPU."""
+    """train_mf, train_dpmf, init_dpmf, the checkpoint loaders and every
+    runner run on the card unless the caller asks for the CPU."""
     import inspect
 
-    from tpu_mf_torch.io.checkpoint import load_mf_binary
+    from tpu_mf_torch.io.checkpoint import load_dpmf_binary, load_mf_binary
+    from tpu_mf_torch.models.dpmf import init_dpmf
     from tpu_mf_torch.ops.sgd_cells import CellEpochRunner
     from tpu_mf_torch.ops.sgd_dense import DenseEpochRunner
     from tpu_mf_torch.ops.sgd_packed import PackedEpochRunner
     from tpu_mf_torch.ops.sgd_slot import SlotEpochRunner
+    from tpu_mf_torch.ops.sgld_cells import SgldCellRunner
+    from tpu_mf_torch.ops.sgld_slot import SlotSgldRunner
+    from tpu_mf_torch.train import train_dpmf
 
-    for fn in (train_mf, load_mf_binary, CellEpochRunner, DenseEpochRunner,
-               PackedEpochRunner, SlotEpochRunner):
+    for fn in (train_mf, train_dpmf, init_dpmf, load_mf_binary,
+               load_dpmf_binary, CellEpochRunner, DenseEpochRunner,
+               PackedEpochRunner, SlotEpochRunner, SgldCellRunner,
+               SlotSgldRunner):
         assert inspect.signature(fn).parameters["device"].default == "cuda"

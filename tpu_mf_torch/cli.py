@@ -5,8 +5,9 @@ Usage:
     python -m tpu_mf_torch.cli --alg mf --train train.csv --test test.csv \
         --dim 64 --iter 15 --result model
 
-Only ``--alg mf`` on one device, in memory, is ported so far; the other
-modes raise ``NotImplementedError`` naming the ROADMAP item that ports them.
+``--alg mf`` and ``--alg dpmf`` on one device, in memory, are ported so
+far; the other modes raise ``NotImplementedError`` naming the ROADMAP item
+that ports them.
 """
 
 from __future__ import annotations
@@ -19,7 +20,6 @@ from tpu_mf_torch.config import TrainConfig
 
 # Modes the port accepts but does not run yet, and the ROADMAP item for each.
 _NOT_PORTED = {
-    "dpmf": "--alg dpmf (ROADMAP Queue 1 item 7)",
     "admf": "--alg admf (ROADMAP Queue 1 item 8)",
     "stream": "--stream (ROADMAP Queue 1 item 9)",
     "measure": "--measure 1 ranking metrics (ROADMAP Queue 1 item 11)",
@@ -31,7 +31,8 @@ def build_parser() -> argparse.ArgumentParser:
     106-137), plus ``--device``."""
     p = argparse.ArgumentParser(
         prog="tpu-mf-torch",
-        description="Matrix factorization trainer, PyTorch port (SGD)",
+        description="Matrix factorization trainer, PyTorch port (SGD, "
+                    "DP-SGLD)",
     )
     p.add_argument("--train", help="training data file (any supported format)")
     p.add_argument("--test", help="test data file")
@@ -106,7 +107,7 @@ def main(argv=None) -> int:
         build_parser().print_help()
         return 1
     why = [_NOT_PORTED[k] for k, on in (
-        ("dpmf", cfg.alg == "dpmf"), ("admf", cfg.alg == "admf"),
+        ("admf", cfg.alg == "admf"),
         ("stream", args.stream), ("measure", cfg.measure == 1)) if on]
     if why:
         raise NotImplementedError(f"tpu_mf_torch does not port {why[0]} yet")
@@ -122,11 +123,15 @@ def main(argv=None) -> int:
 
     from tpu_mf_torch.data.textfmt import read_any
     from tpu_mf_torch.io.checkpoint import load_mf_binary, save_mf_binary, save_npz
-    from tpu_mf_torch.train.loop import train_mf
 
     train_ds = read_any(cfg.train, nu=cfg.nu or None, nv=cfg.nv or None)
     test_ds = (read_any(cfg.test, nu=train_ds.nu, nv=train_ds.nv)
                if cfg.test else None)
+    if cfg.alg == "dpmf":
+        return _main_dpmf(cfg, train_ds, test_ds, device)
+
+    from tpu_mf_torch.train.loop import train_mf
+
     params0 = None
     if cfg.model:
         # warm start adopts the checkpoint's lambda (model.cc:81)
@@ -139,6 +144,42 @@ def main(argv=None) -> int:
             save_npz(cfg.result, params, lam=np.float32(cfg.lam))
         else:
             save_mf_binary(f"{cfg.result}_{cfg.iters}", params, cfg.lam)
+    return 0
+
+
+def _main_dpmf(cfg, train_ds, test_ds, device) -> int:
+    """--alg dpmf: ``--model`` is a hyper-only warm start (main.cc:57);
+    checkpoints on the reference's cadence and ``{result}_{iters}``."""
+    import torch
+
+    from tpu_mf_torch.io.checkpoint import load_dpmf_hyper, save_dpmf_binary
+    from tpu_mf_torch.models.dpmf import init_dpmf
+    from tpu_mf_torch.train.loop import train_dpmf
+
+    state0 = None
+    if cfg.model:
+        lr, lub, lvb, lu, lv = load_dpmf_hyper(cfg.model)
+        state0 = init_dpmf(train_ds, cfg.dim, cfg.gb,
+                           torch.Generator().manual_seed(cfg.seed), device)
+        f32 = dict(dtype=torch.float32, device=device)
+        state0 = state0._replace(
+            lambda_r=torch.tensor(lr, **f32),
+            lambda_ub=torch.tensor(lub, **f32),
+            lambda_vb=torch.tensor(lvb, **f32),
+            lambda_u=torch.as_tensor(lu).to(**f32),
+            lambda_v=torch.as_tensor(lv).to(**f32))
+
+    def save_fn(state, rnd):
+        if cfg.result:
+            save_dpmf_binary(f"{cfg.result}_{rnd}", state.params,
+                             float(state.lambda_r), float(state.lambda_ub),
+                             float(state.lambda_vb),
+                             state.lambda_u.cpu().numpy(),
+                             state.lambda_v.cpu().numpy())
+
+    state = train_dpmf(cfg, train_ds, test_ds=test_ds, state=state0,
+                       save_fn=save_fn, device=device)
+    save_fn(state, cfg.iters)
     return 0
 
 

@@ -37,6 +37,13 @@ def occurrence_stats(
 def decay_factors(
     base: torch.Tensor, is_first: torch.Tensor, counts: torch.Tensor
 ) -> torch.Tensor:
-    """(1-d)^k per first-occurrence slot, 1 elsewhere (``base`` is (B,))."""
+    """(1-d)^k per first-occurrence slot, 1 elsewhere.
+
+    ``base`` is (B,) or (B, D) (per-dimension decay); ``is_first`` and
+    ``counts`` are (B,). ``torch.pow`` keeps the sign of a negative base
+    for odd k, as the sequential reference oscillates."""
+    if base.ndim == 2:
+        is_first = is_first[:, None]
+        counts = counts[:, None]
     return torch.where(is_first, torch.pow(base, counts),
                        torch.ones_like(base))
