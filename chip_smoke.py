@@ -54,12 +54,31 @@ Phases (each prints its own lines; any failure exits non-zero):
      CUDA events;
  13. the same at dim 8: the striped slot SGLD runner every round;
  14. phase 12's state written as the dpmf checkpoint {result}_3, read back
-     with ``load_dpmf_binary`` and checked.
+     with ``load_dpmf_binary`` and checked;
+ 15. both AdaptReg plan families against the plain version on the card, one
+     whole segmented epoch each (segments and hypergradient steps, the same
+     validation draws on both sides), both working types, losses 0 and 1,
+     on 6x6 tiles at ML-10M density: gen-1 plans at dim 128, tiles 512,
+     batch 4096 (8/8 groups; also a negative decay base), striped slot
+     plans at dim 8, tile 1024 (8/8 and windows of 2+ columns);
+ 16. the AdaptReg main path: ``tpu_mf_torch.train.train_admf`` on ``cuda``,
+     3 epochs at dim 128 (the CLI default) on the stand-in's train split
+     less a 5% validation split (``bench.py:261-270``: lam 0.05, eta 0.002,
+     eta_reg 0.01): the gen-1 AdaptReg runner must carry every epoch, 8
+     launches each, tRMSE must be finite and fall, the lambdas stay >= 0
+     and move; eta times the plans' per-column duplicate maxima; then one
+     epoch from the initial state, plain version, kernel, kernel, plain
+     version, with the same validation draws, timed with CUDA events;
+ 17. the same at dim 8 with the striped slot AdaptReg runner, 4 launches an
+     epoch, at eta = min(0.002, 0.18 / the slot gate's duplicate counts);
+ 18. phase 16's state written as the {result}_3 checkpoint (the reference
+     MF binary with lam_u), read back and checked.
 
-The last lines are the kernels' JSON summary (time, launches on the main
-path, bound), the card's name and power limit, and {"ok": true, "device":
-{...}}. Imports nothing of JAX or of tpu_mf. Plans are built anew
-(``TPU_MF_PLAN_CACHE=0``): nothing is written outside the checkout.
+Each phase group prints its seconds. The last lines are the kernels' JSON
+summary (time, launches on the main path, bound), the card's name and
+power limit, and {"ok": true, "device": {...}}. Imports nothing of JAX or
+of tpu_mf. Plans are built anew (``TPU_MF_PLAN_CACHE=0``): nothing is
+written outside the checkout.
 """
 
 from __future__ import annotations
@@ -124,7 +143,16 @@ DIM_DP, DIM_DP8, ROUNDS = 128, 8, 3
 # times (items 108), so scal * 149 must stay near 0.2 or the biases
 # overshoot and the round diverges (scal = 0.05 gave NaN in round 1)
 SCAL_DP = 1e-3
-KERNELS = ("dense_cell", "cell_sgd", "sgld_cells")
+# the AdaptReg runs: the CLI's default rank (gen-1 AdaptReg runner) and a
+# rank-8 run (striped slot runner), at bench.py:262-270's lam, eta, eta_reg
+DIM_AD, DIM_AD8, AD_EPOCHS = 128, 8, 3
+LAM_AD, ETA_AD, ETA_REG_AD = 0.05, 0.002, 0.01
+# the AdaptReg kernels against their plain versions (phases 15-17): the
+# lambdas' hypergradient reads rows that differ by the window-plan
+# tolerances above, so the two sides' lambdas agree to a small share of
+# how far the epoch moved them
+LAM_REL = 1e-2
+KERNELS = ("dense_cell", "cell_sgd", "sgld_cells", "adreg_cells")
 # the card's published peaks (H100 SXM data sheet, at 700 W): memory bytes/s,
 # bf16 tensor-core and float32 CUDA-core operations/s
 HBM_BYTES_S, PEAK_BF16, PEAK_F32 = 3.35e12, 989e12, 67e12
@@ -153,15 +181,20 @@ def dense_bound(cells, dim):
     return bound(nbytes, 6 * elems * (dim + 2), PEAK_BF16)
 
 
-def window_bound(plan, rows_u, rows_v, n_real, dim):
+def window_bytes(plan, rows_u, rows_v, n_real, dim):
     """A window-plan epoch reads each real rating once (u, v, r: 12 bytes;
     padded slots and the weight stream are the plan's layout, not the
     work), the per-batch tiles and apply flags, and every table row once,
-    and writes the rows once; per real rating it does a dim + 2 lane dot
-    product and two dim + 2 lane scaled adds (float32 CUDA cores)."""
-    nbytes = (12 * n_real + 4 * (plan.gu.numel() + 2 * plan.gv.numel())
-              + 2 * 4 * (rows_u + rows_v) * (dim + 3))
-    return bound(nbytes, 6 * n_real * (dim + 2), PEAK_F32)
+    and writes the rows once."""
+    return (12 * n_real + 4 * (plan.gu.numel() + 2 * plan.gv.numel())
+            + 2 * 4 * (rows_u + rows_v) * (dim + 3))
+
+
+def window_bound(plan, rows_u, rows_v, n_real, dim):
+    """``window_bytes``, and per real rating a dim + 2 lane dot product and
+    two dim + 2 lane scaled adds (float32 CUDA cores)."""
+    return bound(window_bytes(plan, rows_u, rows_v, n_real, dim),
+                 6 * n_real * (dim + 2), PEAK_F32)
 
 
 def sgld_bound(runner, plan, n_real, dim, slot):
@@ -199,11 +232,39 @@ def sgld_bound(runner, plan, n_real, dim, slot):
         decay = distinct(b, real)
     else:
         noise, decay = distinct(b, real), distinct(col, real)
-    nbytes = (12 * n_real + 4 * (cp.gu.numel() + 2 * cp.gv.numel())
-              + 2 * 4 * total * (dim + 3) + (16 + 4) * total)
+    nbytes = (window_bytes(cp, rows_u, rows_v, n_real, dim)
+              + (16 + 4) * total)
     ops = (6 * n_real * (dim + 2) + 25 * (dim + 1) * noise
            + 4 * (dim + 1) * decay)
     return bound(nbytes, ops, PEAK_F32)
+
+
+def adreg_bound(runner, plan, n_real, dim, eta):
+    """An AdaptReg epoch's segments: bytes and operations as
+    ``window_bound``, plus per row an apply decays the decay's multiply and
+    the delta's add on each kept lane (dim + 1) and the two powers of its
+    side's bases (an exp each: 2 (dim + 1) + 4 operations), the rows counted
+    once per theta / phi window of the groups the runner picks at ``eta``,
+    from this plan's real slots. The bases' logs (once per launch) and the
+    hypergradient steps between segments are left out."""
+    import torch
+
+    p = runner.plan
+    rows_u, rows_v = p.n_gu * p.tile_u, p.n_gv * p.tile_v
+    tg_w = 8 // runner.pick_theta_groups(eta)
+    pg_w = 8 // runner.pick_phi_groups(eta)
+    nb = plan.u.shape[0]
+    real = plan.w > 0
+    dev = plan.u.device
+    col = (torch.arange(nb, device=dev)[:, None, None] * 8
+           + torch.arange(8, device=dev)[None, :, None])
+    gu = plan.gu.long()[:, None, None] * p.tile_u + plan.u
+    gv = plan.gv.long()[:, :, None] * p.tile_v + plan.v
+    decay = (int(torch.unique((col // tg_w * rows_u + gu)[real]).numel())
+             + int(torch.unique((col // pg_w * rows_v + gv)[real]).numel()))
+    ops = 6 * n_real * (dim + 2) + (2 * (dim + 1) + 4) * decay
+    return bound(window_bytes(plan, rows_u, rows_v, n_real, dim), ops,
+                 PEAK_F32)
 
 
 def calibrated_ml10m(seed: int = 0):
@@ -391,11 +452,11 @@ def run_main_path(torch, train, test, phase, dim, iters, use_dense):
     return cfg, params, rm, lines, per_epoch
 
 
-def only(per_epoch, kernel, epochs):
-    """The kernel launched exactly once in each of ``epochs`` (1-based) and
-    in no other; returns its launches."""
+def only(per_epoch, kernel, epochs, per=1):
+    """The kernel launched exactly ``per`` times in each of ``epochs``
+    (1-based) and in no other; returns its launches."""
     got = per_epoch[kernel]
-    want = [int(i + 1 in epochs) for i in range(len(got))]
+    want = [per * int(i + 1 in epochs) for i in range(len(got))]
     if got != want:
         raise AssertionError(f"{kernel} launches per epoch {got}, want {want}")
     return sum(got)
@@ -965,6 +1026,313 @@ def phase_checkpoint_dpmf(torch, cfg, state):
         "back")
 
 
+def admf_state(torch, ds, dim, gb, lam, tabs=None, seed=0):
+    """init_admf's state, or one from the numpy ``tabs``, on the card."""
+    from tpu_mf_torch.models.admf import init_admf, with_shadows
+    from tpu_mf_torch.models.mf import params_from_numpy
+
+    if tabs is None:
+        return init_admf(ds.nu, ds.nv, dim, lam, gb,
+                         torch.Generator().manual_seed(seed), DEVICE)
+    return with_shadows(params_from_numpy(*tabs, gb, device=DEVICE),
+                        (lam,) * 4)
+
+
+def adreg_epochs(torch, runner, state, eta, eta_reg, key, order,
+                 samples=None, timed=None):
+    """One AdaptReg epoch of ``runner`` from ``state`` per entry of
+    ``order`` ("kernel" or "plain"), the same validation draws on every
+    turn; returns {which: (fused tables, lambdas)} of each one's first turn
+    and appends each turn's CUDA-event ms to ``timed[which]``."""
+    out = {}
+    for which in order:
+        tabs = runner.pad(state)
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        runner.epoch(tabs, eta, eta_reg, key, samples=samples,
+                     reference=which == "plain")
+        b.record()
+        torch.cuda.synchronize()
+        if timed is not None:
+            timed[which].append(a.elapsed_time(b))
+        out.setdefault(which, (tabs, runner.lams.clone()))
+    return out
+
+
+def hold_lams(what, got, want, lam0, phase):
+    """The kernel's lambdas within LAM_REL of how far the plain version's
+    moved from ``lam0``; returns the largest difference."""
+    moved = float((want - lam0).abs().max())
+    err = float((got - want).abs().max())
+    log(f"# phase {phase}: {what}: lambdas kernel {got.tolist()} plain "
+        f"{want.tolist()} from {lam0.tolist()}: difference {err:.3e} "
+        f"(limit {LAM_REL:g} x motion {moved:.3e})")
+    if not (moved > 0 and err <= LAM_REL * moved + 1e-7):
+        raise AssertionError(f"{what}: the lambdas disagree or did not move")
+    return err
+
+
+def binary(ds):
+    """The ratings as 1 above the mean and 0 below (logistic targets)."""
+    import dataclasses
+
+    return dataclasses.replace(ds, r=(ds.r > ds.mean_rating()).astype(
+        "float32"))
+
+
+def compare_adreg(torch, make, ds, va, tabs, dim, name, what, cases):
+    """An AdaptReg runner's kernel vs the plain version, one whole epoch
+    (eta_reg 0.5, so the lambdas move) per working type, loss and
+    (eta, lam) of ``cases(runner)``; returns the largest table error per
+    working type."""
+    errs = {}
+    for mxu in ("float32", "bfloat16"):
+        for loss in (0, 1):
+            tr, vl = (binary(ds), binary(va)) if loss else (ds, va)
+            gb = 0.0 if loss else 3.5
+            r = make(tr, vl, mxu, loss)
+            for eta, lam in cases(r):
+                with warnings.catch_warnings():  # 8/8 past the envelope
+                    warnings.simplefilter("ignore")
+                    tg, pg = r.pick_theta_groups(eta), r.pick_phi_groups(eta)
+                    state = admf_state(torch, tr, dim, gb, lam, tabs)
+                    lam0 = torch.full((4,), lam, device=DEVICE)
+                    out = adreg_epochs(torch, r, state, eta, 0.5, 1,
+                                       ("plain", "kernel"))
+                err = max(float((a - b).abs().max()) for a, b in
+                          zip(out["kernel"][0], out["plain"][0]))
+                errs[mxu] = max(errs.get(mxu, 0.0), err)
+                desc = (f"{name} vs plain, {mxu}, loss {loss}, groups "
+                        f"{tg}/{pg} (eta {eta:.3g}, eta*lam {eta * lam:.3g})"
+                        f", {what}, {r.plan.u.shape[0]} batches in "
+                        f"{r.segments} segments, dim {dim}, {len(ds)} "
+                        "ratings")
+                log(f"# phase 15: {desc}: max_abs_err {err:.3e} (atol "
+                    f"{ATOL_CELL[mxu]:g})")
+                if not err <= ATOL_CELL[mxu]:
+                    raise AssertionError(f"{name} disagrees ({mxu})")
+                hold_lams(desc, out["kernel"][1], out["plain"][1], lam0, 15)
+    return errs
+
+
+def phase_compare_adreg(torch, tac, tas, rng):
+    """Both AdaptReg families vs the plain version on 6x6 tiles at ML-10M
+    density: gen-1 plans at the main path's dim 128, tiles 512, batch 4096
+    (at 8/8; eta*lam 1.5 gives a negative decay base), striped slot plans at
+    dim 8, tile 1024 (at 8/8, and at the eta whose windows span 2+ columns
+    on both sides). The validation set is a second draw of the corner."""
+    from tpu_mf_torch.data.coo import RatingsCOO
+
+    def corner_pair(tu, tv):
+        ds, _ = corner(rng, tu, tv)
+        va, _ = corner(rng, tu, tv)
+        return ds, RatingsCOO(va.u[:5000], va.v[:5000], va.r[:5000],
+                              va.nu, va.nv)
+
+    ds, va = corner_pair(512, 512)
+    errs = {"adreg": compare_adreg(
+        torch, lambda tr, vl, mxu, loss: tac.AdRegCellRunner(
+            tr, vl, tile_u=512, tile_v=512, batch=4096, mxu=mxu, loss=loss,
+            device=DEVICE),
+        ds, va, tables(rng, ds, DIM_AD), DIM_AD, "adreg",
+        "batch 4096 at tiles 512x512",
+        lambda r: ((0.05, LAM_AD), (0.05, 1.5 / 0.05)))}
+    ds, va = corner_pair(1024, 1024)
+
+    def slot_etas(r):
+        seq = max(0.05, 1.01 * 0.2 / min(r._dup_max[4], r._vdup_max[4]))
+        return ((seq, LAM_AD),
+                (0.2 / max(r._dup_max[2], r._vdup_max[2]), LAM_AD))
+
+    errs["slot_adreg"] = compare_adreg(
+        torch, lambda tr, vl, mxu, loss: tas.SlotAdRegRunner(
+            tr, vl, dim=DIM_AD8, mxu=mxu, loss=loss, striped=True,
+            device=DEVICE),
+        ds, va, tables(rng, ds, DIM_AD8), DIM_AD8, "slot_adreg",
+        "striped plans at tiles 1024x1024", slot_etas)
+    return errs
+
+
+def run_admf(torch, train, valid, test, phase, dim, eta):
+    """train_admf on cuda with every kernel count set to 0 just before; the
+    per-epoch launch counts read just after. tRMSE must be finite and
+    fall, the lambdas stay >= 0 and move."""
+    from tpu_mf_torch.config import TrainConfig
+    from tpu_mf_torch.ops import adreg_cells as tac
+    from tpu_mf_torch.ops import adreg_slot as tas
+    from tpu_mf_torch.ops import sgld_cells as tg
+    from tpu_mf_torch.ops import sgld_slot as tss
+    from tpu_mf_torch.train import train_admf
+
+    cfg = TrainConfig(alg="admf", dim=dim, iters=AD_EPOCHS, lam=LAM_AD,
+                      eta=eta, eta_reg=ETA_REG_AD, gb=train.mean_rating())
+    counts = {**counters(), "sgld": tg.SgldCellRunner,
+              "slot_sgld": tss.SlotSgldRunner, "adreg": tac.AdRegCellRunner,
+              "slot_adreg": tas.SlotAdRegRunner}
+    wrappers = (tac.adreg_segment, tg.sgld_cell_epoch, tss.sgld_slot_epoch)
+    lines, marks = [], []
+
+    def record(line):
+        lines.append(line)
+        log(line)
+        if line.startswith("iter#"):
+            marks.append({k: c.launches for k, c in counts.items()})
+
+    for c in list(counts.values()) + list(wrappers):
+        c.launches = 0
+    t = time.perf_counter()
+    state = train_admf(cfg, train, valid, test, log=record, device=DEVICE)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    per_epoch = {k: [b[k] - a[k] for a, b in zip([dict.fromkeys(counts, 0)]
+                                                 + marks, marks)]
+                 for k in counts}
+    if tac.adreg_segment.launches != sum(per_epoch["adreg"]) + sum(
+            per_epoch["slot_adreg"]):
+        raise AssertionError("an AdaptReg launch outside the runners")
+    log(f"# phase {phase}: train_admf(dim={dim}, eta={eta:g}) on cuda, "
+        f"{AD_EPOCHS} epochs in {wall:.1f} s (set-up included); launches per "
+        f"epoch " + ", ".join(f"{k} {v}" for k, v in per_epoch.items()))
+    rm = [float(x.split("tRMSE=")[1]) for x in lines if "tRMSE=" in x]
+    lams = [float(x) for x in state[5:]]
+    log(f"# phase {phase}: lambdas lam_u, lam_v, lam_bu, lam_bv {lams} "
+        f"(from {LAM_AD:g})")
+    if any("batched path" in x for x in lines):
+        raise AssertionError("an epoch left the fused kernels")
+    if not (len(rm) == AD_EPOCHS and all(map(math.isfinite, rm))
+            and rm[-1] < rm[0]):
+        raise AssertionError(f"tRMSE not finite and falling: {rm}")
+    if not (min(lams) >= 0 and any(x != float(torch.tensor(LAM_AD))
+                                   for x in lams)):
+        raise AssertionError(f"lambdas negative or unmoved: {lams}")
+    return cfg, state, lines, per_epoch
+
+
+def time_segments(torch, runner, init, eta, n, phase, name):
+    """One epoch's segments alone from ``init``, kernel, plain version,
+    kernel, each launch timed with CUDA events: the lambdas stay at
+    ``init``'s and the hypergradient steps between segments are left out,
+    as the bound leaves them out; returns the median summed ms of the
+    kernel and of the plain version, and the bound."""
+    from tpu_mf_torch.ops import adreg_cells as tac
+
+    plan = runner.materialize()._dev[0]
+    tg, pg = runner.pick_theta_groups(eta), runner.pick_phi_groups(eta)
+    seg = runner.seg_len(0)
+    times = {"kernel": [], "plain": []}
+    for which in ("kernel", "plain", "kernel"):
+        theta, phi = runner.pad(init)
+        fn = (tac.adreg_segment_reference if which == "plain"
+              else tac.adreg_segment)
+        ev = [[torch.cuda.Event(enable_timing=True) for _ in range(2)]
+              for _ in range(runner.segments)]
+        for s, (a, b) in enumerate(ev):
+            a.record()
+            fn(theta, phi, plan, s * seg, (s + 1) * seg, eta, runner.lams,
+               runner.gb, runner.dim, tg, pg, runner.work_dtype, runner.loss)
+            b.record()
+        torch.cuda.synchronize()
+        times[which].append(sum(a.elapsed_time(b) for a, b in ev))
+    for what, ts in times.items():
+        log(f"# phase {phase}: {name} {what}: the {runner.segments} segments "
+            f"alone, ms {[round(x, 3) for x in ts]}, rating updates/s "
+            f"{[round(n / (x / 1e3)) for x in ts]}")
+    return (median(times["kernel"]), median(times["plain"]),
+            adreg_bound(runner, plan, n, runner.dim, eta))
+
+
+def time_admf_epoch(torch, cfg, runner, train, test, phase, name):
+    """One full epoch of the main path's runner from the initial state,
+    plain version, kernel, kernel, plain version, with the same validation
+    draws (epoch 1's), timed with CUDA events and held to each other; then
+    the segments alone (``time_segments``), whose times it returns."""
+    from tpu_mf_torch.models.mf import rmse
+    from tpu_mf_torch.ops.sgd_cells import _dup_stats
+    from tpu_mf_torch.train.loop import _admf_key
+
+    init = admf_state(torch, train, cfg.dim, cfg.gb, cfg.lam, seed=cfg.seed)
+    eta, eta_reg = cfg.eta_at(1), cfg.eta_reg_at(1)
+    key = _admf_key(cfg, 1)
+    if runner._dup_max is None:  # gen-1: groups pinned at 8/8
+        dups = (max(_dup_stats(p.u, p.tile_u)[8] for p in runner.plans),
+                max(_dup_stats(p.v, p.tile_v)[8] for p in runner.plans))
+    else:
+        dups = (runner._dup_max[8], runner._vdup_max[8])
+    log(f"# phase {phase}: {type(runner).__name__}: {runner.plan.u.shape[0]} "
+        f"batches in {runner.segments} segments, tiles {runner.tile_u}x"
+        f"{runner.tile_v}, groups {runner.pick_theta_groups(eta)}/"
+        f"{runner.pick_phi_groups(eta)}; per-column duplicate maxima user "
+        f"{dups[0]}, item {dups[1]}: eta x maxima {eta * dups[0]:.3g}, "
+        f"{eta * dups[1]:.3g}")
+    runner.pad(init)
+    samples = torch.stack([runner.draw_samples(key, s)
+                           for s in range(runner.segments)])
+    times = {"kernel": [], "plain": []}
+    out = adreg_epochs(torch, runner, init, eta, eta_reg, key,
+                       ("plain", "kernel", "kernel", "plain"), samples, times)
+    n = len(train)
+    for what, ts in times.items():
+        log(f"# phase {phase}: {name} {what}: epoch ms (hypergradient steps "
+            f"included) {[round(x, 3) for x in ts]}, rating updates/s "
+            f"{[round(n / (x / 1e3)) for x in ts]}")
+    got, want = (runner.trim(out[w][0]) for w in ("kernel", "plain"))
+    err = hold(f"{name} epoch 1 (eta {eta:g}), kernel vs plain", got, want,
+               init.params, ATOL_CELL_FULL, phase)
+    hold_lams(f"{name} epoch 1", out["kernel"][1], out["plain"][1],
+              torch.stack(list(init[5:])), phase)
+    rm_k, rm_p = rmse(got, test), rmse(want, test)
+    log(f"# phase {phase}: {name} tRMSE after epoch 1: kernel {rm_k:.6f} "
+        f"plain {rm_p:.6f}")
+    if not abs(rm_k - rm_p) <= 1e-3:
+        raise AssertionError(f"{name}: tRMSE of kernel and plain disagree")
+    return err, time_segments(torch, runner, init, eta, n, phase, name)
+
+
+def phase_admf(torch, train, valid, test, phase, dim, eta, family, runner):
+    """Phases 16 and 17: the main path with ``family`` carrying every epoch,
+    one launch per segment, then one epoch timed through ``runner`` (None:
+    the main path's runner, rebuilt)."""
+    from tpu_mf_torch.train.loop import _admf_runner
+
+    cfg, state, lines, per_epoch = run_admf(torch, train, valid, test, phase,
+                                            dim, eta)
+    if runner is None:
+        runner = _admf_runner(cfg, train, valid, state, lambda _: None,
+                              DEVICE)
+    if type(runner).__name__ != {"adreg": "AdRegCellRunner",
+                                 "slot_adreg": "SlotAdRegRunner"}[family]:
+        raise AssertionError(f"{type(runner).__name__} is not {family}'s")
+    launches = only(per_epoch, family, range(1, AD_EPOCHS + 1),
+                    runner.segments)
+    for k in per_epoch:
+        if k != family:
+            only(per_epoch, k, ())
+    _, timed = time_admf_epoch(torch, cfg, runner, train, test, phase, family)
+    return cfg, state, launches, timed
+
+
+def phase_checkpoint_admf(torch, cfg, state, nu, nv):
+    from tpu_mf_torch.io.checkpoint import load_mf_binary, save_mf_binary
+
+    lam = float(state.lam_u)
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, f"model_{cfg.iters}")
+        save_mf_binary(path, state.params, lam)
+        back, lam_back = load_mf_binary(path, gb=cfg.gb, device=DEVICE)
+        size = os.path.getsize(path)
+    want = 16 + 4 * (nu + nv) * (DIM_AD + 1)
+    if size != want or lam_back != lam:
+        raise AssertionError(f"admf checkpoint size {size} != {want} or "
+                             "lam_u")
+    for a, b in zip(back[:4], state.params[:4]):
+        if a.shape != b.shape or not torch.equal(a, b.contiguous()):
+            raise AssertionError("admf checkpoint does not read back")
+        if not bool(torch.isfinite(a).all()):
+            raise AssertionError("non-finite tables")
+    log(f"# phase 18: admf checkpoint model_{cfg.iters} ({size} bytes, "
+        f"lam_u {lam:g}) reads back")
+
+
 def entry(name, replaces, launches, err, timed, source=None):
     ms, plain_ms, (bound_ms, bound_by) = timed
     return {"name": name, "route": "cuda",
@@ -972,7 +1340,7 @@ def entry(name, replaces, launches, err, timed, source=None):
             "replaces": replaces, "launches": launches, "max_abs_err": err,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by,
-            # no single PyTorch call computes an SGD or SGLD epoch
+            # no single PyTorch call computes an SGD, SGLD or AdaptReg epoch
             "library_ms": None}
 
 
@@ -985,6 +1353,8 @@ def main() -> int:
     import numpy as np
 
     os.environ["TPU_MF_PLAN_CACHE"] = "0"
+    from tpu_mf_torch.ops import adreg_cells as tac
+    from tpu_mf_torch.ops import adreg_slot as tas
     from tpu_mf_torch.ops import sgd_cells as tc
     from tpu_mf_torch.ops import sgd_dense as td
     from tpu_mf_torch.ops import sgd_packed as tpk
@@ -992,19 +1362,30 @@ def main() -> int:
     from tpu_mf_torch.ops import sgld_cells as tg
     from tpu_mf_torch.ops import sgld_slot as tss
 
+    last = [time.perf_counter()]
+
+    def lap(phases):
+        now = time.perf_counter()
+        log(f"# phases {phases}: {now - last[0]:.1f} s")
+        last[0] = now
+
     card = phase_build()
     errs = phase_compare(torch, td, np.random.default_rng(0))
     train, test = load_data()
     cell_errs = phase_compare_cells(torch, tc, np.random.default_rng(1),
                                     tc.pick_cell_geometry(train))
+    lap("1-2")
     cfg, params, rm, launches = phase_train(torch, train, test)
     dense_t = phase_time(torch, td, cfg, train, test, params, rm)
+    lap("3")
     ccfg, cparams, crm, claunches = phase_train_cells(torch, train, test)
     cell_t = phase_time_cells(torch, tc, ccfg, train, test, cparams, crm)
     phase_checkpoint(torch, cfg, params)
+    lap("4-5")
     phase_train_rank8(torch, train, test)
     (lcfg, lparams, lrm, geo_packed, geo_slots, plaunches,
      slaunches) = phase_train_ladder(torch, train, test)
+    lap("6-7")
     lerrs = phase_compare_ladder(torch, tc, tpk, tsl,
                                  np.random.default_rng(2), geo_packed,
                                  geo_slots)
@@ -1012,18 +1393,56 @@ def main() -> int:
                                       lrm, geo_packed, geo_slots)
     packed_t, slot_t = phase_time_ladder(torch, tc, lcfg, train, test, init,
                                          sched)
+    lap("8-10")
     sgld_errs = phase_compare_sgld(torch, tg, tss, np.random.default_rng(3))
     dcfg, dstate, sgld_launches, sgld_t = phase_dpmf(
         torch, tg, tss, train, test, 12, DIM_DP, "sgld")
     _, _, slot_sgld_launches, slot_sgld_t = phase_dpmf(
         torch, tg, tss, train, test, 13, DIM_DP8, "slot_sgld")
     phase_checkpoint_dpmf(torch, dcfg, dstate)
+    lap("11-14")
+    ad_errs = phase_compare_adreg(torch, tac, tas, np.random.default_rng(4))
+    lap("15")
+    atrain, avalid = train.split(0.05, seed=3)
+    acfg, astate, ad_launches, ad_t = phase_admf(
+        torch, atrain, avalid, test, 16, DIM_AD, ETA_AD, "adreg", None)
+    lap("16")
+    t = time.perf_counter()
+    lb, _ = tsl.slot_dup_lower_bound(atrain, dim=DIM_AD8, balance=True)
+    # the runner train_admf builds at dim 8 (loop.py's _admf_runner): its
+    # window statistics set eta, and it is the one phase 17 times
+    probe = tas.SlotAdRegRunner(atrain, avalid, seed=acfg.seed, n_plans=2,
+                                dim=DIM_AD8, striped=True, device=DEVICE)
+    eta8 = min(ETA_AD, 0.18 / max(lb, probe._dup_max[8], probe._vdup_max[8]))
+    log(f"# phase 17: slot gate at dim {DIM_AD8}: pigeonhole bound {lb}, "
+        f"plan duplicate maxima user {probe._dup_max[8]}, item "
+        f"{probe._vdup_max[8]}: eta {eta8:g} (host statistics in "
+        f"{time.perf_counter() - t:.1f} s)")
+    if eta8 >= 1e-5:
+        _, _, slot_ad_launches, slot_ad_t = phase_admf(
+            torch, atrain, avalid, test, 17, DIM_AD8, eta8, "slot_adreg",
+            probe)
+    else:
+        # not forced past the gate: the main path at dim 8 is gen-1's, and
+        # the slot kernel is only timed against its plain version
+        log(f"# phase 17: the slot gate refuses every eta >= 1e-5 at dim "
+            f"{DIM_AD8}: train_admf runs the gen-1 runner at eta {ETA_AD:g}")
+        phase_admf(torch, atrain, avalid, test, 17, DIM_AD8, ETA_AD, "adreg",
+                   None)
+        slot_ad_launches = 0
+        slot_ad_t = time_segments(
+            torch, probe, admf_state(torch, atrain, DIM_AD8, acfg.gb, LAM_AD,
+                                     seed=acfg.seed),
+            ETA_AD, len(atrain), 17, "slot_adreg")
+    phase_checkpoint_admf(torch, acfg, astate, atrain.nu, atrain.nv)
+    lap("17-18")
     bad = sorted(m for m in sys.modules
                  if m.split(".")[0] in ("jax", "jaxlib", "tpu_mf"))
     if bad:
         raise AssertionError(f"the port imported JAX or tpu_mf: {bad[:5]}")
     cell_src = "tpu_mf_torch/csrc/cell_sgd.cu"
     sgld_src = "tpu_mf_torch/csrc/sgld_cells.cu"
+    adreg_src = "tpu_mf_torch/csrc/adreg_cells.cu"
     log(json.dumps({"kernels": [
         entry("dense_cell", "tpu_mf/ops/pallas_sgd_dense.py:239", launches,
               errs["bfloat16"], dense_t),
@@ -1038,6 +1457,11 @@ def main() -> int:
         entry("slot_sgld", "tpu_mf/ops/pallas_sgld_slot.py:59",
               slot_sgld_launches, sgld_errs["slot_sgld"]["bfloat16"],
               slot_sgld_t, sgld_src),
+        entry("adreg", "tpu_mf/ops/pallas_adreg.py:46", ad_launches,
+              ad_errs["adreg"]["bfloat16"], ad_t, adreg_src),
+        entry("slot_adreg", "tpu_mf/ops/pallas_adreg_slot.py:51",
+              slot_ad_launches, ad_errs["slot_adreg"]["bfloat16"],
+              slot_ad_t, adreg_src),
     ]}))
     log(card)
     log(json.dumps({"ok": True, "device": {

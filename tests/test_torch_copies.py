@@ -1,6 +1,7 @@
 """The port's own copies of tpu_mf's JAX-free modules (``config``,
-``data``) against their originals: the same datasets, splits, batches,
-configuration and parsed files, bit for bit."""
+``data``) and helpers (``ops/common.py::distinct_counts``) against their
+originals: the same datasets, splits, batches, configuration, parsed files
+and counts, bit for bit."""
 
 import dataclasses
 
@@ -92,3 +93,19 @@ def test_read_any_matches(tmp_path):
             assert_coo_equal(ttext.read_any(str(path), **kw),
                              jtext.read_any(str(path), **kw))
     assert ttext.detect_format(str(tmp_path / "frames.bin")) == "proto"
+
+
+@pytest.mark.parametrize("shape", [(7, 64), (3, 5, 40)])
+def test_distinct_counts_bit_equal(shape):
+    """ops/common.py's distinct_counts (host-side AdaptReg visit counts)
+    gives tpu_mf's counts, padded slots excluded."""
+    from tpu_mf.ops.common import distinct_counts as jax_distinct_counts
+    from tpu_mf_torch.ops.common import distinct_counts
+
+    rng = np.random.default_rng(len(shape))
+    ids = rng.integers(0, 30, shape).astype(np.int32)
+    real = rng.random(shape) < 0.7
+    got, want = distinct_counts(ids, real), jax_distinct_counts(ids, real)
+    np.testing.assert_array_equal(got, want)
+    assert got.dtype == want.dtype == np.float32
+    assert got.shape == shape[:-1]

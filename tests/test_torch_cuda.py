@@ -6,6 +6,8 @@ This file imports no JAX, so it also runs on a machine without it:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -13,6 +15,8 @@ import torch
 from tpu_mf_torch.config import TrainConfig
 from tpu_mf_torch.data.coo import synthetic_ratings
 from tpu_mf_torch.models.mf import params_from_numpy
+from tpu_mf_torch.ops import adreg_cells as tac
+from tpu_mf_torch.ops import adreg_slot as tas
 from tpu_mf_torch.ops import sgd_cells as tc
 from tpu_mf_torch.ops import sgd_dense as td
 from tpu_mf_torch.ops import sgd_packed as tpk
@@ -320,3 +324,123 @@ def test_slot_sgld_kernel_matches_reference(cuda, mxu, atol, plan,
     held(got, want, atol)
     start = r.pad(state)
     assert float((got[0] - start[0]).abs().max()) > 1e-3  # it trained
+
+
+def adreg_sets(loss):
+    """(train, valid) for the AdaptReg kernels: zipfy train, uniform valid;
+    with loss 1 the ratings are 1 above the mean and 0 below."""
+    ds = synthetic_ratings(500, 400, 40000, rank=3, noise=0.3, seed=5,
+                           zipf=1.0, zipf_q=20.0)
+    valid = synthetic_ratings(500, 400, 2000, rank=3, noise=0.3, seed=6)
+    if loss:
+        ds, valid = (dataclasses.replace(
+            d, r=(d.r > ds.mean_rating()).astype(np.float32))
+            for d in (ds, valid))
+    return ds, valid
+
+
+def np_admf_state(ds, dim, lam, gb, device):
+    from tpu_mf_torch.models.admf import with_shadows
+
+    params = params_from_numpy(*np_tables(ds.nu, ds.nv, dim, 6, gb), device)
+    return with_shadows(params, (lam,) * 4)
+
+
+ADREG = {
+    "gen1": lambda ds, va, dim, **kw: tac.AdRegCellRunner(
+        ds, va, tile_u=96, tile_v=80, batch=1024, **kw),
+    "slot": lambda ds, va, dim, **kw: tas.SlotAdRegRunner(
+        ds, va, sub=32, dim=dim, **kw),
+    "stripe": lambda ds, va, dim, **kw: tas.SlotAdRegRunner(
+        ds, va, sub=64, dim=dim, striped=True, **kw),
+}
+# name: (loss, eta * lam); "negbase": eta * lam = 1.5, a negative decay base
+ADREG_CASES = {"lsq": (0, 1e-3), "logistic": (1, 1e-3), "negbase": (0, 1.5)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(ADREG_CASES))
+# gen-1 at one (dim 40) and three (dim 300) lane groups, at 8/8; slot
+# plans at P 8 (dim 8) and P 4 (dim 26): plain ones at windows of 2+
+# columns, striped ones at the groups eta 0.05 picks
+@pytest.mark.parametrize("family,dim", [
+    ("gen1", 40), ("gen1", 300), ("slot", 8), ("slot", 26), ("stripe", 8),
+    ("stripe", 26)])
+@pytest.mark.parametrize("mxu,atol", [
+    # f32: the same terms, summed by atomics in another order
+    ("float32", 1e-4),
+    # bf16: a row or an err*p rounding may flip where the f32 value differs
+    # in its last bit; one bf16 step of an update
+    ("bfloat16", 2e-3),
+])
+def test_adreg_kernel_epoch_matches_reference(cuda, mxu, atol, family, dim,
+                                              case):
+    """A whole segmented AdaptReg epoch (segments, hypergradient steps) of
+    each runner family with the kernel against the same epoch through the
+    plain version on the card, the same validation draws on both sides:
+    tables within atol, the lambdas within 1% of how far they moved. The
+    kernel's epoch makes no host sync (the lambdas stay on the card)."""
+    loss, eta_lam = ADREG_CASES[case]
+    ds, va = adreg_sets(loss)
+    r = ADREG[family](ds, va, dim, seed=7, mxu=mxu, loss=loss, device=cuda)
+    if family == "gen1":
+        eta = 0.05
+    elif family == "slot":
+        eta = 0.2 / max(r._dup_max[2], r._vdup_max[2])
+        assert max(r.pick_theta_groups(eta), r.pick_phi_groups(eta)) <= 2
+    else:
+        eta = 0.05
+    state = np_admf_state(ds, dim, eta_lam / eta, 0.0 if loss else 3.0,
+                          cuda)
+    got = r.pad(state)
+    lam0 = r.lams.clone()
+    want = tuple(t.clone() for t in got)
+    r.epoch(want, eta, 0.5, 3, reference=True)
+    lam_want, r.lams = r.lams, lam0.clone()
+    before, fam = tac.adreg_segment.launches, type(r).launches
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        r.epoch(got, eta, 0.5, 3)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert r.segments >= 2
+    assert tac.adreg_segment.launches == before + r.segments
+    assert type(r).launches == fam + r.segments
+    for a, b in zip(got, want):
+        assert float((a - b).abs().max()) <= atol
+    moved = float((lam_want - lam0).abs().max())
+    assert moved > 0
+    assert float((r.lams - lam_want).abs().max()) <= 1e-2 * moved + 1e-7
+    start = r.pad(state)
+    assert float((got[0] - start[0]).abs().max()) > 1e-3  # it trained
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dim,family", [(8, "slot"), (64, "gen1")])
+def test_train_admf_on_gpu_runs_the_kernel(cuda, dim, family):
+    """train_admf on a CUDA device: the striped slot runner (dim 8) or the
+    gen-1 runner (dim 64) carries every epoch, one launch per segment, and
+    the test RMSE falls; the lambdas stay >= 0."""
+    from tpu_mf_torch.train import train_admf
+    from tpu_mf_torch.train.loop import _admf_runner
+
+    ds = synthetic_ratings(600, 400, 30000, rank=3, noise=0.2, seed=1)
+    tr, rest = ds.split(0.2, seed=2)
+    va, te = rest.split(0.5, seed=3)
+    cfg = TrainConfig(alg="admf", dim=dim, iters=3, eta=0.005, eta_reg=0.05,
+                      gb=tr.mean_rating())
+    state = np_admf_state(tr, dim, cfg.lam, cfg.gb, cuda)
+    probe = _admf_runner(cfg, tr, va, state, lambda _: None, cuda)
+    want = sum(probe._segs[it % len(probe.plans)] for it in range(3))
+    fams = {"slot": tas.SlotAdRegRunner, "gen1": tac.AdRegCellRunner}
+    assert type(probe) is fams[family]
+    before = {k: c.launches for k, c in fams.items()}
+    log = []
+    out = train_admf(cfg, tr, va, te, log=log.append, device=cuda)
+    assert {k: c.launches - before[k] for k, c in fams.items()} == {
+        k: want if k == family else 0 for k in fams}
+    rm = [float(x.split("tRMSE=")[1]) for x in log if "tRMSE=" in x]
+    assert np.all(np.isfinite(rm)) and rm[-1] < rm[0], rm
+    assert min(float(x) for x in out[5:]) >= 0

@@ -347,12 +347,15 @@ def test_cli_metrics_and_trace(tmp_path):
 
 def test_port_runs_without_jax(tmp_path):
     """A fresh interpreter in which tpu_mf cannot be imported runs the CPU
-    slice through the CLI (--alg mf and --alg dpmf) and the fused dim-8
-    schedule (packed, then dense) on CPU tensors, and imports neither JAX
-    nor any module of tpu_mf."""
+    slice through the CLI (--alg mf, --alg dpmf and --alg admf) and the
+    fused dim-8 schedule (packed, then dense) and a fused AdaptReg epoch
+    pair on CPU tensors, and imports neither JAX nor any module of
+    tpu_mf."""
     args = write_data(tmp_path) + ["--device", "cpu"]
     dp_args = args + ["--alg", "dpmf", "--eta", "2e-5", "--hyperb", "1000",
                       "--result", str(tmp_path / "dp")]
+    ad_args = args + ["--alg", "admf", "--valid", str(tmp_path / "test.csv"),
+                      "--result", str(tmp_path / "ad")]
     code = f"""
 import sys
 sys.modules["tpu_mf"] = None  # any import of the JAX package fails
@@ -364,12 +367,22 @@ from tpu_mf_torch.train.loop import _Observer, _train_mf_fused
 import torch
 assert main({args!r}) == 0
 assert main({dp_args!r}) == 0
+assert main({ad_args!r}) == 0
 tr, te = synthetic_ratings(200, 150, 6000, rank=3, noise=0.2,
                            seed=0).split(0.1, seed=1)
 cfg = TrainConfig(dim=8, iters=2, eta=0.04, gam=2.0, gb=tr.mean_rating())
 params = init_mf(tr.nu, tr.nv, 8, cfg.gb, torch.Generator().manual_seed(0),
                  "cpu")
 _train_mf_fused(cfg, tr, te, params, print, _Observer(cfg, len(tr), print))
+from tpu_mf_torch.models.admf import init_admf
+from tpu_mf_torch.ops.adreg_cells import AdRegCellRunner
+from tpu_mf_torch.train.loop import _train_admf_fused
+acfg = TrainConfig(alg="admf", dim=8, iters=2, eta=0.01, gb=tr.mean_rating())
+_train_admf_fused(acfg, AdRegCellRunner(tr, te, tile_u=64, tile_v=64,
+                                        batch=512, n_plans=2, device="cpu"),
+                  init_admf(tr.nu, tr.nv, 8, acfg.lam, acfg.gb,
+                            torch.Generator().manual_seed(0), "cpu"),
+                  te, print, _Observer(acfg, len(tr), print))
 bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
        or m == "tpu_mf" or m.startswith("tpu_mf.")]
 assert bad == ["tpu_mf"] and sys.modules["tpu_mf"] is None, bad
@@ -378,10 +391,11 @@ assert bad == ["tpu_mf"] and sys.modules["tpu_mf"] is None, bad
     proc = subprocess.run([sys.executable, "-c", code], cwd=tmp_path, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr[-2000:]
-    assert proc.stdout.count("iter#2") == 2
+    assert proc.stdout.count("iter#2") == 4
     assert "# lane-packed kernel: epochs 1..1" in proc.stdout
     assert proc.stdout.count("round #2\t") == 1
     assert (tmp_path / "dp_2").stat().st_size > 0
+    assert (tmp_path / "ad_2").stat().st_size > 0
 
 
 def test_cli_cuda_without_gpu_fails(tmp_path):
@@ -395,22 +409,37 @@ def test_cli_cuda_without_gpu_fails(tmp_path):
 
 
 def test_entry_points_default_to_cuda():
-    """train_mf, train_dpmf, init_dpmf, the checkpoint loaders and every
-    runner run on the card unless the caller asks for the CPU."""
+    """train_mf, train_dpmf, train_admf, init_dpmf, init_admf, the
+    checkpoint loaders and every runner run on the card unless the caller
+    asks for the CPU."""
     import inspect
 
     from tpu_mf_torch.io.checkpoint import load_dpmf_binary, load_mf_binary
+    from tpu_mf_torch.models.admf import init_admf
     from tpu_mf_torch.models.dpmf import init_dpmf
+    from tpu_mf_torch.ops.adreg_cells import AdRegCellRunner
+    from tpu_mf_torch.ops.adreg_slot import SlotAdRegRunner
     from tpu_mf_torch.ops.sgd_cells import CellEpochRunner
     from tpu_mf_torch.ops.sgd_dense import DenseEpochRunner
     from tpu_mf_torch.ops.sgd_packed import PackedEpochRunner
     from tpu_mf_torch.ops.sgd_slot import SlotEpochRunner
     from tpu_mf_torch.ops.sgld_cells import SgldCellRunner
     from tpu_mf_torch.ops.sgld_slot import SlotSgldRunner
-    from tpu_mf_torch.train import train_dpmf
+    from tpu_mf_torch.train import train_admf, train_dpmf
 
-    for fn in (train_mf, train_dpmf, init_dpmf, load_mf_binary,
-               load_dpmf_binary, CellEpochRunner, DenseEpochRunner,
-               PackedEpochRunner, SlotEpochRunner, SgldCellRunner,
-               SlotSgldRunner):
+    for fn in (train_mf, train_dpmf, train_admf, init_dpmf, init_admf,
+               load_mf_binary, load_dpmf_binary, CellEpochRunner,
+               DenseEpochRunner, PackedEpochRunner, SlotEpochRunner,
+               SgldCellRunner, SlotSgldRunner, AdRegCellRunner,
+               SlotAdRegRunner):
         assert inspect.signature(fn).parameters["device"].default == "cuda"
+
+
+@pytest.mark.parametrize("flag", [["--stream"], ["--measure", "1"]])
+def test_cli_unported_modes_raise(tmp_path, flag):
+    """--stream and --measure 1 raise NotImplementedError naming their
+    ROADMAP item; --alg admf is ported and runs (test_torch_admf.py)."""
+    from tpu_mf_torch.cli import main
+
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
+        main(write_data(tmp_path) + ["--device", "cpu"] + flag)

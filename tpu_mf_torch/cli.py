@@ -5,9 +5,9 @@ Usage:
     python -m tpu_mf_torch.cli --alg mf --train train.csv --test test.csv \
         --dim 64 --iter 15 --result model
 
-``--alg mf`` and ``--alg dpmf`` on one device, in memory, are ported so
-far; the other modes raise ``NotImplementedError`` naming the ROADMAP item
-that ports them.
+``--alg mf``, ``--alg dpmf`` and ``--alg admf`` (which needs ``--valid``)
+on one device, in memory, are ported so far; the other modes raise
+``NotImplementedError`` naming the ROADMAP item that ports them.
 """
 
 from __future__ import annotations
@@ -20,7 +20,6 @@ from tpu_mf_torch.config import TrainConfig
 
 # Modes the port accepts but does not run yet, and the ROADMAP item for each.
 _NOT_PORTED = {
-    "admf": "--alg admf (ROADMAP Queue 1 item 8)",
     "stream": "--stream (ROADMAP Queue 1 item 9)",
     "measure": "--measure 1 ranking metrics (ROADMAP Queue 1 item 11)",
 }
@@ -32,7 +31,7 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="tpu-mf-torch",
         description="Matrix factorization trainer, PyTorch port (SGD, "
-                    "DP-SGLD)",
+                    "DP-SGLD, adaptive regularization)",
     )
     p.add_argument("--train", help="training data file (any supported format)")
     p.add_argument("--test", help="test data file")
@@ -107,7 +106,6 @@ def main(argv=None) -> int:
         build_parser().print_help()
         return 1
     why = [_NOT_PORTED[k] for k, on in (
-        ("admf", cfg.alg == "admf"),
         ("stream", args.stream), ("measure", cfg.measure == 1)) if on]
     if why:
         raise NotImplementedError(f"tpu_mf_torch does not port {why[0]} yet")
@@ -129,6 +127,8 @@ def main(argv=None) -> int:
                if cfg.test else None)
     if cfg.alg == "dpmf":
         return _main_dpmf(cfg, train_ds, test_ds, device)
+    if cfg.alg == "admf":
+        return _main_admf(cfg, train_ds, test_ds, device)
 
     from tpu_mf_torch.train.loop import train_mf
 
@@ -180,6 +180,25 @@ def _main_dpmf(cfg, train_ds, test_ds, device) -> int:
     state = train_dpmf(cfg, train_ds, test_ds=test_ds, state=state0,
                        save_fn=save_fn, device=device)
     save_fn(state, cfg.iters)
+    return 0
+
+
+def _main_admf(cfg, train_ds, test_ds, device) -> int:
+    """--alg admf: needs --valid; --model is not read (as in tpu_mf);
+    writes {result}_{iters} as the reference MF binary with lam_u."""
+    from tpu_mf_torch.data.textfmt import read_any
+    from tpu_mf_torch.io.checkpoint import save_mf_binary
+    from tpu_mf_torch.train.loop import train_admf
+
+    if not cfg.valid:
+        print("admf requires --valid", file=sys.stderr)
+        return 1
+    valid_ds = read_any(cfg.valid, nu=train_ds.nu, nv=train_ds.nv)
+    state = train_admf(cfg, train_ds, valid_ds, test_ds=test_ds,
+                       device=device)
+    if cfg.result:
+        save_mf_binary(f"{cfg.result}_{cfg.iters}", state.params,
+                       float(state.lam_u))
     return 0
 
 

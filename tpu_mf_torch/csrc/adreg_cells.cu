@@ -1,0 +1,320 @@
+// AdaptReg segment of a window-plan epoch for Hopper (sm_90a).
+//
+// Replaces the two TPU AdaptReg kernels:
+//   tpu_mf/ops/pallas_adreg.py:_adreg_kernel (gen-1 cell plans,
+//     ops/adreg_cells.py);
+//   tpu_mf/ops/pallas_adreg_slot.py:_slot_adreg_kernel (plain and striped
+//     slot plans converted to window plans, ops/adreg_slot.py).
+// Both compute the window-plan epoch of csrc/cell_sgd.cu (its header sets
+// out the plan, the windows and the design) over one segment of a plan's
+// batches, with the AdaptRegMF semantics (reference: src/admf.h:52-86):
+//
+//     pred = act(t . p + gb),   err = eta * w * (r - pred)
+//     dtheta[u] += err * p,   dphi[v] += err * t,   cnt lane (dim + 2) += w
+//
+// act is the identity, or the logistic sigmoid with loss 1. At an apply a
+// row touched k times in its window becomes, per kept lane l,
+//
+//     row_l * base_l^k + d_l,   base_l = 1 - eta * lam_l,
+//
+// lam_u on the user factor lanes and lam_bu on its bias lane (dim), lam_v
+// and lam_bv on the item's (bias lane dim + 1); the one-lanes and the count
+// lane are not kept. base^k = exp(k ln|base|), negated for a negative base
+// and odd k: a learned lambda can push eta * lam past 1. There is no
+// saturation, and t*p is summed unrounded (the TPU kernels round only the
+// gathered rows and the scatter operands to the bf16 working type).
+// Gen-1 AdaptReg runs at 8/8 groups with every apply flag set (a window is
+// one column; both sides apply at every column); slot AdaptReg at the
+// groups and apply flags its runner picks.
+//
+// One cooperative launch runs a segment, the plan batches [b0, b1). Between
+// segments the runner takes a hypergradient step on the four learned
+// lambdas on the device, so the kernel reads lam_u, lam_v, lam_bu, lam_bv
+// from device memory and computes the bases itself: a segment never waits
+// for the host.
+//
+// Why a source of its own: as a compile-time mode of csrc/cell_sgd.cu the
+// MF instantiations compiled to other code (60-62 registers where they had
+// 64) and their epochs measured 2-4% slower on an H100 80GB HBM3 at
+// 700 W, so the MF kernel keeps its source and this file repeats the
+// window machinery, specialized: no saturation, no rounded prediction,
+// per-lane decay, the activation, a batch range, lambdas on the device.
+//
+// What bounds it on the H100: as csrc/cell_sgd.cu, the chain of window
+// steps (a scatter phase, a grid sync, an apply phase, a grid sync), each
+// waiting on its row reads and atomics. Per applied row it adds two exps;
+// the logs of the four bases are taken once per launch.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include <cooperative_groups.h>
+
+namespace cg = cooperative_groups;
+
+namespace {
+
+constexpr int kWarps = 32;      // warps per block of the persistent kernel
+constexpr int kCached = 4;      // 32-lane row chunks held in registers (dim <= 125)
+
+template <bool kBF16>
+__device__ __forceinline__ float to_work(float x) {
+  if constexpr (kBF16)
+    return __bfloat162float(__float2bfloat16_rn(x));
+  else
+    return x;
+}
+
+// Rows and deltas change between phases on other SMs: read them from L2.
+__device__ __forceinline__ float ld(const float* p) { return __ldcg(p); }
+
+// One rating slot of the plan: weight, rating, tile-local ids, item tile.
+struct Slot {
+  float w, r;
+  int u, v, gv;
+};
+
+__device__ __forceinline__ Slot load_slot(const int* u, const int* v,
+                                          const float* r, const float* w,
+                                          const int* gv, int col,
+                                          long long slot) {
+  return Slot{w[slot], r[slot], u[slot], v[slot], gv[col]};
+}
+
+// One slot, one warp: gather both rows, predict, scatter the deltas. The
+// first kCached 32-lane chunks of both rows stay in registers.
+template <bool kBF16>
+__device__ __forceinline__ void step_slot(
+    const float* theta, const float* phi, const Slot& sl, int gut,
+    float* dtheta, float* acc, int tile_u, int tile_v, int lanes, int dim,
+    float eta, float gb, int loss, int lane) {
+  const float wk = sl.w, rk = sl.r;
+  const int ul = sl.u, vl = sl.v, gvt = sl.gv;
+  if (wk == 0.f) return;  // padded slot (sentinel ids): contributes nothing
+  const float* tr = theta + ((long long)gut * tile_u + ul) * lanes;
+  const long long vrow = (long long)gvt * tile_v + vl;
+  const float* pr = phi + vrow * lanes;
+  const int n = dim + 2;  // lanes >= dim + 2 are zero in both rows
+  float tc[kCached], pc[kCached];
+  float part = 0.f;
+#pragma unroll
+  for (int j = 0; j < kCached; ++j) {
+    const int l = lane + 32 * j;
+    tc[j] = l < n ? to_work<kBF16>(ld(tr + l)) : 0.f;
+    pc[j] = l < n ? to_work<kBF16>(ld(pr + l)) : 0.f;
+  }
+#pragma unroll
+  for (int j = 0; j < kCached; ++j) part += tc[j] * pc[j];
+  for (int l = lane + 32 * kCached; l < n; l += 32)
+    part += to_work<kBF16>(ld(tr + l)) * to_work<kBF16>(ld(pr + l));
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) part += __shfl_xor_sync(0xffffffffu, part, o);
+  float pred = part + gb;
+  if (loss) pred = 1.f / (1.f + expf(-pred));
+  const float err = (eta * wk) * (rk - pred);
+  // each side's one-lane takes the other side's bias term, which its apply
+  // never reads: skip those two adds
+  float* du = dtheta + (long long)ul * lanes;
+  float* dv = acc + vrow * lanes;
+#pragma unroll
+  for (int j = 0; j < kCached; ++j) {
+    const int l = lane + 32 * j;
+    if (l >= n) break;
+    if (l != dim + 1) atomicAdd(du + l, to_work<kBF16>(err * pc[j]));
+    if (l != dim) atomicAdd(dv + l, to_work<kBF16>(err * tc[j]));
+  }
+  for (int l = lane + 32 * kCached; l < n; l += 32) {
+    const float t = to_work<kBF16>(ld(tr + l)), p = to_work<kBF16>(ld(pr + l));
+    if (l != dim + 1) atomicAdd(du + l, to_work<kBF16>(err * p));
+    if (l != dim) atomicAdd(dv + l, to_work<kBF16>(err * t));
+  }
+  if (lane == 0) {  // counts: the count lane of both rows is zero, so w
+    atomicAdd(du + dim + 2, wk);
+    atomicAdd(dv + dim + 2, wk);
+  }
+}
+
+// The decay of one side: ln|base| and the sign of base, for the factor
+// lanes and for the bias lane.
+struct LaneDecay {
+  float ln_fac, ln_bias;
+  bool neg_fac, neg_bias;
+};
+
+__device__ __forceinline__ LaneDecay lane_decay(float eta, float lam_fac,
+                                                float lam_bias) {
+  // 1 - eta * lam rounded as the TPU kernel rounds it (no fused multiply-add)
+  const float bf = __fsub_rn(1.f, __fmul_rn(eta, lam_fac));
+  const float bb = __fsub_rn(1.f, __fmul_rn(eta, lam_bias));
+  return LaneDecay{logf(fmaxf(fabsf(bf), 1e-30f)),
+                   logf(fmaxf(fabsf(bb), 1e-30f)), bf < 0.f, bb < 0.f};
+}
+
+// Decay one table row per lane and add its window delta, then clear the
+// delta. The count and the first kCached chunks arrive in one round trip.
+__device__ __forceinline__ void apply_row(float* tr, float* dr, bool user,
+                                          int dim, LaneDecay ad, int lane) {
+  const int n = dim + 3;
+  const float k = ld(dr + dim + 2);
+  float dc[kCached], rc[kCached];
+#pragma unroll
+  for (int j = 0; j < kCached; ++j) {
+    const int l = lane + 32 * j;
+    dc[j] = l < n ? ld(dr + l) : 0.f;
+    rc[j] = l < n ? ld(tr + l) : 0.f;
+  }
+  __syncwarp();  // every lane has read k before lane (dim + 2) % 32 clears it
+  if (k == 0.f) return;  // untouched in this window
+  const bool odd = fmodf(k, 2.f) == 1.f;
+  float mf = expf(k * ad.ln_fac), mb = expf(k * ad.ln_bias);
+  if (ad.neg_fac && odd) mf = -mf;
+  if (ad.neg_bias && odd) mb = -mb;
+  const int bias = user ? dim : dim + 1;
+#pragma unroll
+  for (int j = 0; j < kCached; ++j) {
+    const int l = lane + 32 * j;
+    if (l >= n) break;
+    if (l < dim || l == bias) tr[l] = rc[j] * (l < dim ? mf : mb) + dc[j];
+    dr[l] = 0.f;
+  }
+  for (int l = lane + 32 * kCached; l < n; l += 32) {
+    if (l < dim || l == bias)
+      tr[l] = ld(tr + l) * (l < dim ? mf : mb) + ld(dr + l);
+    dr[l] = 0.f;
+  }
+}
+
+struct SegmentArgs {
+  float* theta; float* phi; const int* u; const int* v; const float* r;
+  const float* w; const int* gu; const int* gv; const int* ap; float* dtheta;
+  float* acc;
+  const float* lams;  // lam_u, lam_v, lam_bu, lam_bv on the device
+  int b0, b1, sub, tile_u, tile_v, lanes, dim, tg_w, pg_w, loss;
+  float eta, gb;
+};
+
+// The batches [b0, b1) in one cooperative launch: every window step is a
+// scatter phase over all slots of its columns, a grid-wide sync, and (where a
+// group ends) an apply phase over the rows of the tiles that apply, then a
+// sync.
+template <bool kBF16>
+__global__ void __launch_bounds__(32 * kWarps)
+adreg_segment_kernel(SegmentArgs a) {
+  cg::grid_group grid = cg::this_grid();
+  const int lane = threadIdx.x % 32;
+  const int gwarp = blockIdx.x * kWarps + threadIdx.x / 32;
+  const int n_warps = gridDim.x * kWarps;
+  const int step = a.tg_w < a.pg_w ? a.tg_w : a.pg_w;
+  const LaneDecay dec_u = lane_decay(a.eta, __ldg(a.lams + 0),
+                                     __ldg(a.lams + 2));
+  const LaneDecay dec_v = lane_decay(a.eta, __ldg(a.lams + 1),
+                                     __ldg(a.lams + 3));
+  // when a step has at most one slot per warp, each warp loads its slot of
+  // the next step before the grid syncs, so a step waits only on its rows
+  Slot next{};
+  bool have_next = false;
+  for (int i = a.b0; i < a.b1; ++i) {
+    const int gut = a.gu[i];
+    for (int c0 = 0; c0 < 8; c0 += step) {
+      const int width = step * a.sub;
+      for (int q = gwarp; q < width; q += n_warps) {
+        const int col = i * 8 + c0 + q / a.sub;
+        const Slot sl = have_next && q == gwarp
+            ? next : load_slot(a.u, a.v, a.r, a.w, a.gv, col,
+                               (long long)col * a.sub + q % a.sub);
+        step_slot<kBF16>(a.theta, a.phi, sl, gut, a.dtheta, a.acc, a.tile_u,
+                         a.tile_v, a.lanes, a.dim, a.eta, a.gb, a.loss, lane);
+      }
+      const int ni = c0 + step < 8 ? i : i + 1;
+      const int nc = c0 + step < 8 ? c0 + step : 0;
+      have_next = ni < a.b1 && gwarp < width && width <= n_warps;
+      if (have_next) {
+        const int col = ni * 8 + nc + gwarp / a.sub;
+        next = load_slot(a.u, a.v, a.r, a.w, a.gv, col,
+                         (long long)col * a.sub + gwarp % a.sub);
+      }
+      grid.sync();
+      const int end = c0 + step;
+      const int n_pc = end % a.pg_w == 0 ? a.pg_w : 0;
+      const int n_th = end % a.tg_w == 0 ? 1 : 0;
+      if (n_pc + n_th == 0) continue;
+      const int total = n_pc * a.tile_v + n_th * a.tile_u;
+      for (int q = gwarp; q < total; q += n_warps) {
+        const bool user = q >= n_pc * a.tile_v;
+        float* tab;
+        float* d;
+        if (user) {
+          const int row = q - n_pc * a.tile_v;
+          tab = a.theta + ((long long)gut * a.tile_u + row) * a.lanes;
+          d = a.dtheta + (long long)row * a.lanes;
+        } else {
+          const int col = i * 8 + end - a.pg_w + q / a.tile_v;
+          if (a.ap[col] == 0) continue;
+          const long long off =
+              ((long long)a.gv[col] * a.tile_v + q % a.tile_v) * a.lanes;
+          tab = a.phi + off;
+          d = a.acc + off;
+        }
+        apply_row(tab, d, user, a.dim, user ? dec_u : dec_v, lane);
+      }
+      grid.sync();
+    }
+  }
+}
+
+template <bool kBF16>
+int run_segment(const SegmentArgs& args, cudaStream_t stream) {
+  auto kernel = adreg_segment_kernel<kBF16>;
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        32 * kWarps, 0);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+  SegmentArgs a = args;
+  void* params[] = {&a};
+  // one block of 32 warps per SM, as csrc/cell_sgd.cu
+  err = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(kernel), dim3(sms),
+                                    dim3(32 * kWarps), params, 0, stream);
+  return static_cast<int>(err);
+}
+
+bool valid_groups(int g) { return g == 1 || g == 2 || g == 4 || g == 8; }
+
+}  // namespace
+
+// One AdaptReg segment: the plan batches [b0, b1), in place on theta/phi,
+// launched on `stream`. The plan arrays are csrc/cell_sgd.cu's: u, v, r, w
+// (nb, 8, sub), one column contiguous; gu (nb), gv and ap (nb, 8). lams
+// holds lam_u, lam_v, lam_bu, lam_bv (float32, on the device). dtheta
+// (tile_u x lanes) and acc (phi's shape) must be zero on entry and are zero
+// again on return. work: 0 = f32, 1 = bf16; loss: 0 = least squares, 1 =
+// logistic. Returns 0 or the CUDA error code.
+extern "C" int tmf_adreg_segment(void* theta, void* phi, const void* u,
+                                 const void* v, const void* r, const void* w,
+                                 const void* gu, const void* gv,
+                                 const void* ap, void* dtheta, void* acc,
+                                 const void* lams, int b0, int b1, int sub,
+                                 int tile_u, int tile_v, int lanes, int dim,
+                                 int theta_groups, int phi_groups, int work,
+                                 int loss, float eta, float gb, void* stream) {
+  if (!valid_groups(theta_groups) || !valid_groups(phi_groups) ||
+      dim + 3 > lanes || sub <= 0 || b0 < 0 || b1 < b0 || lams == nullptr ||
+      (loss != 0 && loss != 1) || (work != 0 && work != 1))
+    return static_cast<int>(cudaErrorInvalidValue);
+  SegmentArgs a{static_cast<float*>(theta), static_cast<float*>(phi),
+                static_cast<const int*>(u), static_cast<const int*>(v),
+                static_cast<const float*>(r), static_cast<const float*>(w),
+                static_cast<const int*>(gu), static_cast<const int*>(gv),
+                static_cast<const int*>(ap), static_cast<float*>(dtheta),
+                static_cast<float*>(acc), static_cast<const float*>(lams),
+                b0, b1, sub, tile_u, tile_v, lanes, dim, 8 / theta_groups,
+                8 / phi_groups, loss, eta, gb};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (work == 0) return run_segment<false>(a, st);
+  return run_segment<true>(a, st);
+}

@@ -13,6 +13,7 @@ from __future__ import annotations
 
 from typing import Tuple
 
+import numpy as np
 import torch
 
 
@@ -47,3 +48,20 @@ def decay_factors(
         counts = counts[:, None]
     return torch.where(is_first, torch.pow(base, counts),
                        torch.ones_like(base))
+
+
+def distinct_counts(ids, real) -> np.ndarray:
+    """Distinct real ids per leading row, vectorized (host-side plan build;
+    ``tpu_mf``'s, as it is).
+
+    ids/real: (..., n_slots) arrays; returns float32 of shape ids.shape[:-1].
+    """
+    sentinel = np.iinfo(np.int64).max
+    flat = ids.astype(np.int64, copy=True)
+    flat[~np.asarray(real, bool)] = sentinel
+    flat.sort(axis=-1)
+    first = np.empty(flat.shape, bool)
+    first[..., :1] = flat[..., :1] < sentinel
+    first[..., 1:] = ((flat[..., 1:] != flat[..., :-1])
+                      & (flat[..., 1:] < sentinel))
+    return first.sum(axis=-1).astype(np.float32)

@@ -313,17 +313,46 @@ def cell_epoch_reference(theta: torch.Tensor, phi: torch.Tensor,
     Gathers and ``index_add_`` per window step: the columns between two
     group ends run at once. Rows and products are rounded to the working
     type where the TPU kernel rounds them; every sum is float32."""
+    eta_t, lam_t, gb_t, cap_t = torch.tensor([eta, lam, gb, cap],
+                                             dtype=torch.float32,
+                                             device=theta.device)
+    ln_decay = torch.log(1.0 - eta_t * lam_t)
+    keep = window_keep(theta.shape[1], dim, theta.device)
+
+    def apply(cur, d, side):
+        k = d[:, dim + 2:dim + 3]
+        if saturate:
+            d = d * torch.clamp(cap_t / torch.clamp(k, min=1.0), max=1.0)
+        return (cur * (1.0 + keep[side] * (torch.exp(k * ln_decay) - 1.0))
+                + d * keep[side])
+
+    window_reference(theta, phi, plan, (0, plan.u.shape[0]), eta_t, gb_t,
+                     dim, theta_groups, phi_groups, work, mxu_pred, apply)
+
+
+def window_keep(lanes: int, dim: int, dev) -> Tuple[torch.Tensor, ...]:
+    """(keep_u, keep_v) float32 lane masks: the lanes an apply writes (a
+    user row's factors and bias, an item row's factors and bias)."""
+    lane = torch.arange(lanes, device=dev)
+    return ((lane <= dim).to(torch.float32),
+            ((lane < dim) | (lane == dim + 1)).to(torch.float32))
+
+
+def window_reference(theta: torch.Tensor, phi: torch.Tensor,
+                     plan: DevicePlan, batches: Tuple[int, int],
+                     eta_t: torch.Tensor, gb_t: torch.Tensor, dim: int,
+                     theta_groups: int, phi_groups: int, work: torch.dtype,
+                     mxu_pred: bool, apply, activate=None) -> None:
+    """The plain window-plan walk over the plan batches [b0, b1), in place:
+    per window step the gathers, the prediction (``activate`` applied to
+    t . p + gb, when given), the scatter of the deltas and counts, and at
+    each group end ``apply(rows, deltas, side)`` (side 0 the user tile, 1
+    an item tile), which returns the new rows."""
     f32 = torch.float32
     dev = theta.device
     lanes = theta.shape[1]
     tu, tv = plan.tile_u, plan.tile_v
-    nb = plan.u.shape[0]
-    eta_t, lam_t, gb_t, cap_t = torch.tensor([eta, lam, gb, cap], dtype=f32,
-                                             device=dev)
-    ln_decay = torch.log(1.0 - eta_t * lam_t)
     lane = torch.arange(lanes, device=dev)
-    keep_u = (lane <= dim).to(f32)
-    keep_v = ((lane < dim) | (lane == dim + 1)).to(f32)
     cnt = (lane == dim + 2).to(f32)
     tg_w, pg_w = 8 // theta_groups, 8 // phi_groups
     step = min(tg_w, pg_w)
@@ -334,13 +363,7 @@ def cell_epoch_reference(theta: torch.Tensor, phi: torch.Tensor,
     def rnd(x):
         return x if work == f32 else x.to(work).to(f32)
 
-    def apply(cur, d, keep):
-        k = d[:, dim + 2:dim + 3]
-        if saturate:
-            d = d * torch.clamp(cap_t / torch.clamp(k, min=1.0), max=1.0)
-        return cur * (1.0 + keep * (torch.exp(k * ln_decay) - 1.0)) + d * keep
-
-    for i in range(nb):
+    for i in range(*batches):
         gu = int(plan.gu_host[i])
         th = theta[gu * tu:(gu + 1) * tu]
         for c0 in range(0, 8, step):
@@ -354,6 +377,8 @@ def cell_epoch_reference(theta: torch.Tensor, phi: torch.Tensor,
             p = rnd(phi[vl])
             tp = rnd(t * p) if mxu_pred else t * p
             pred = tp.sum(-1, keepdim=True) + gb_t
+            if activate is not None:
+                pred = activate(pred)
             wk = w.unsqueeze(-1)
             err = (eta_t * wk) * (plan.r[i, c0:c1].unsqueeze(-1) - pred)
             d_theta.index_add_(0, ul.reshape(-1),
@@ -365,10 +390,10 @@ def cell_epoch_reference(theta: torch.Tensor, phi: torch.Tensor,
                     if ap[i, c]:
                         rows = slice(int(plan.gv_host[i, c]) * tv,
                                      (int(plan.gv_host[i, c]) + 1) * tv)
-                        phi[rows] = apply(phi[rows], acc[rows], keep_v)
+                        phi[rows] = apply(phi[rows], acc[rows], 1)
                         acc[rows] = 0.0
             if c1 % tg_w == 0:
-                th[:] = apply(th, d_theta, keep_u)
+                th[:] = apply(th, d_theta, 0)
                 d_theta.zero_()
 
 
@@ -381,7 +406,36 @@ def _cell_lib() -> ctypes.CDLL:
     return lib
 
 
-_WORK = {torch.float32: 0, torch.bfloat16: 1}
+# the window-plan kernels' working types (csrc/cell_sgd.cu, adreg_cells.cu)
+WORK = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def check_window_launch(name: str, theta: torch.Tensor, phi: torch.Tensor,
+                        plan: DevicePlan, phi_groups: int, dim: int,
+                        extra=()) -> None:
+    """Raise ValueError unless the tables, the plan (and the ``extra``
+    (name, tensor, dtype, shape) operands) are what the window-plan kernels
+    (``csrc/cell_sgd.cu``, ``csrc/adreg_cells.cu``) take: contiguous, of the
+    right type and shape, on theta's device."""
+    nb, cols, sub = plan.u.shape
+    for tname, t, dtype, shape in (
+            ("theta", theta, torch.float32, None),
+            ("phi", phi, torch.float32, None), *extra,
+            ("u", plan.u, torch.int32, (nb, 8, sub)),
+            ("v", plan.v, torch.int32, (nb, 8, sub)),
+            ("r", plan.r, torch.float32, (nb, 8, sub)),
+            ("w", plan.w, torch.float32, (nb, 8, sub)),
+            ("gu", plan.gu, torch.int32, (nb,)),
+            ("gv", plan.gv, torch.int32, (nb, 8)),
+            ("ap", plan.ap[phi_groups], torch.int32, (nb, 8))):
+        if (t.device != theta.device or not t.is_contiguous()
+                or t.dtype != dtype or (shape and t.shape != shape)):
+            raise ValueError(f"{name}: {tname} must be a contiguous "
+                             f"{dtype} tensor of shape {shape} on "
+                             f"{theta.device}")
+    if (cols != 8 or theta.shape[0] % plan.tile_u or phi.shape[0] % plan.tile_v
+            or phi.shape[1] != theta.shape[1] or dim + 3 > theta.shape[1]):
+        raise ValueError(f"{name}: table or plan shapes do not match")
 
 
 def cell_epoch(theta: torch.Tensor, phi: torch.Tensor, plan: DevicePlan,
@@ -397,7 +451,7 @@ def cell_epoch(theta: torch.Tensor, phi: torch.Tensor, plan: DevicePlan,
     if theta_groups not in GROUPS or phi_groups not in GROUPS:
         raise ValueError(f"groups must divide the 8 columns, got "
                          f"{theta_groups}/{phi_groups}")
-    if work not in _WORK:
+    if work not in WORK:
         raise ValueError(f"cell_epoch: unsupported working type {work}")
     if theta.device.type == "cpu":
         cell_epoch_reference(theta, phi, plan, eta, lam, gb, cap, dim,
@@ -406,27 +460,10 @@ def cell_epoch(theta: torch.Tensor, phi: torch.Tensor, plan: DevicePlan,
         return
     if theta.device.type != "cuda":
         raise ValueError(f"cell_epoch: no kernel for device {theta.device}")
-    nb, cols, sub = plan.u.shape
+    check_window_launch("cell_epoch", theta, phi, plan, phi_groups, dim)
+    nb, _, sub = plan.u.shape
     lanes = theta.shape[1]
     ap = plan.ap[phi_groups]
-    for name, t, dtype, shape in (
-            ("theta", theta, torch.float32, None),
-            ("phi", phi, torch.float32, None),
-            ("u", plan.u, torch.int32, (nb, 8, sub)),
-            ("v", plan.v, torch.int32, (nb, 8, sub)),
-            ("r", plan.r, torch.float32, (nb, 8, sub)),
-            ("w", plan.w, torch.float32, (nb, 8, sub)),
-            ("gu", plan.gu, torch.int32, (nb,)),
-            ("gv", plan.gv, torch.int32, (nb, 8)),
-            ("ap", ap, torch.int32, (nb, 8))):
-        if (t.device != theta.device or not t.is_contiguous()
-                or t.dtype != dtype or (shape and t.shape != shape)):
-            raise ValueError(f"cell_epoch: {name} must be a contiguous "
-                             f"{dtype} tensor of shape {shape} on "
-                             f"{theta.device}")
-    if (cols != 8 or theta.shape[0] % plan.tile_u or phi.shape[0] % plan.tile_v
-            or phi.shape[1] != lanes or dim + 3 > lanes):
-        raise ValueError("cell_epoch: table or plan shapes do not match")
     d_theta = torch.zeros(plan.tile_u, lanes, dtype=torch.float32,
                           device=theta.device)
     acc = torch.zeros_like(phi)
@@ -439,7 +476,7 @@ def cell_epoch(theta: torch.Tensor, phi: torch.Tensor, plan: DevicePlan,
             plan.gu.data_ptr(), plan.gv.data_ptr(), ap.data_ptr(),
             d_theta.data_ptr(), acc.data_ptr(),
             nb, sub, plan.tile_u, plan.tile_v, lanes, dim, theta_groups,
-            phi_groups, _WORK[work], int(mxu_pred), int(saturate),
+            phi_groups, WORK[work], int(mxu_pred), int(saturate),
             eta, lam, gb, cap, stream)
     if rc != 0:
         raise RuntimeError(f"cell_sgd kernel launch failed: CUDA error {rc}")
