@@ -1,9 +1,12 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                  # every phase
+    python3 chip_smoke.py --phases 1,19-21  # a subset (phase 1 always)
 
-Phases (each prints its own lines; any failure exits non-zero):
+Phases (each prints its own lines; any failure exits non-zero). A listed
+phase brings the rest of its group, the phases that read each other's
+results: 3 and 5; 7-10; 12 and 14; 16 and 18:
   1. build the CUDA kernels from the sources in the checkout, one nvcc per
      source, all at once;
   2. each kernel against its plain PyTorch version on the card, in both
@@ -72,7 +75,25 @@ Phases (each prints its own lines; any failure exits non-zero):
  17. the same at dim 8 with the striped slot AdaptReg runner, 4 launches an
      epoch, at eta = min(0.002, 0.18 / the slot gate's duplicate counts);
  18. phase 16's state written as the {result}_3 checkpoint (the reference
-     MF binary with lam_u), read back and checked.
+     MF binary with lam_u), read back and checked;
+ 19. the mega runner's window plans and the free-column kernel against
+     their plain versions on the card, both working types, on 6x6 tiles at
+     ML-10M density: mega at pack 1 (dim 64, tiles 512, mxu_pred on) and
+     pack 8 (dim 8, tiles 1024), each padded with all-sentinel batches, at
+     8/8 groups and at an eta whose windows span 2+ columns; free at dim 64,
+     tiles 128, groups 8/8, 1/1 and 8/1, saturation on and off, on a plan
+     whose last batch has sentinel columns;
+ 20. the mega path: ``MegaEpochRunner`` on the stand-in at dim 64 (pack 1,
+     two plans, saturating, bf16), pad, 3 epochs from ``init_mf``'s tables
+     at the CLI defaults' eta, trim: the runner's and ``cell_epoch``'s
+     launches must rise by one every epoch and no other kernel's, tRMSE
+     must fall; then epoch 1 from the same tables, plain version, kernel,
+     kernel, plain version, timed with CUDA events and held as in phase 9;
+ 21. the free-column path the same way: ``FreeEpochRunner`` at dim 64 (its
+     default balance, saturation and picked batch), counted on
+     ``FreeEpochRunner.launches`` and ``free_epoch.launches``; then the same
+     epoch once more as the one-user-tile window plan on ``cell_sgd.cu``,
+     timed and held to the plain version.
 
 Each phase group prints its seconds. The last lines are the kernels' JSON
 summary (time, launches on the main path, bound), the card's name and
@@ -152,7 +173,8 @@ LAM_AD, ETA_AD, ETA_REG_AD = 0.05, 0.002, 0.01
 # tolerances above, so the two sides' lambdas agree to a small share of
 # how far the epoch moved them
 LAM_REL = 1e-2
-KERNELS = ("dense_cell", "cell_sgd", "sgld_cells", "adreg_cells")
+KERNELS = ("dense_cell", "cell_sgd", "sgld_cells", "adreg_cells",
+           "free_cells")
 # the card's published peaks (H100 SXM data sheet, at 700 W): memory bytes/s,
 # bf16 tensor-core and float32 CUDA-core operations/s
 HBM_BYTES_S, PEAK_BF16, PEAK_F32 = 3.35e12, 989e12, 67e12
@@ -195,6 +217,15 @@ def window_bound(plan, rows_u, rows_v, n_real, dim):
     two dim + 2 lane scaled adds (float32 CUDA cores)."""
     return bound(window_bytes(plan, rows_u, rows_v, n_real, dim),
                  6 * n_real * (dim + 2), PEAK_F32)
+
+
+def free_bound(plan, rows_u, rows_v, n_real, dim):
+    """``window_bound`` over a free-column plan: each column names its own
+    user tile and item tile (``gu`` and ``gv`` are both (NB, 8)) and carries
+    an apply flag for each side, so the plan's per-column bytes are four
+    int32s where a gen-1 plan's are two and a quarter."""
+    return bound(window_bytes(plan, rows_u, rows_v, n_real, dim)
+                 + 4 * plan.gv.numel(), 6 * n_real * (dim + 2), PEAK_F32)
 
 
 def sgld_bound(runner, plan, n_real, dim, slot):
@@ -669,15 +700,20 @@ def phase_replay_ladder(torch, tc, cfg, train, test, params, rm, geo_packed,
     return init, sched
 
 
-def time_one_epoch(torch, tc, cfg, runner, train, test, init, it, name):
+def time_one_epoch(torch, tc, cfg, runner, train, test, init, it, name,
+                   phase=10, atol=ATOL_LADDER_FULL, plain=None,
+                   bound_fn=window_bound):
     """One full epoch at epoch ``it``'s eta from the initial tables, plain
-    version, kernel, kernel, plain version, timed with CUDA events and held
-    to each other; returns the median epoch ms of each and the bound of
-    the epoch."""
+    version (``plain(tables, eta, it)``, by default ``plain_epoch``),
+    kernel, kernel, plain version, timed with CUDA events and held to each
+    other; returns the median epoch ms of each, the bound of the epoch
+    (``bound_fn``) and the plain version's tables."""
     from tpu_mf_torch.models.mf import rmse
 
     eta = cfg.eta_at(it)
     gb = float(init.gb)
+    plain = plain or (lambda tabs, eta, it: plain_epoch(
+        tc, runner, tabs, eta, cfg.lam, gb, it))
     tg, pg = runner.pick_theta_groups(eta), runner.pick_phi_groups(eta)
     plan = runner.materialize()._dev[it % len(runner._dev)]
     times, out = {"kernel": [], "plain": []}, {}
@@ -688,27 +724,27 @@ def time_one_epoch(torch, tc, cfg, runner, train, test, init, it, name):
         if which == "kernel":
             runner.epoch(tabs, eta, cfg.lam, gb, epoch_idx=it)
         else:
-            plain_epoch(tc, runner, tabs, eta, cfg.lam, gb, it)
+            plain(tabs, eta, it)
         b.record()
         torch.cuda.synchronize()
         times[which].append(a.elapsed_time(b))
         out.setdefault(which, runner.trim(tabs))
     n = len(train)
     for what, ts in times.items():
-        log(f"# phase 10: {name} {what}: epoch ms "
+        log(f"# phase {phase}: {name} {what}: epoch ms "
             f"{[round(x, 3) for x in ts]}, rating updates/s "
             f"{[round(n / (x / 1e3)) for x in ts]}")
     hold(f"{name} epoch {it} (eta {eta:g}, groups {tg}/{pg}, "
          f"{plan.u.shape[0]} batches, columns of {plan.u.shape[2]}), kernel "
-         f"vs plain", out["kernel"], out["plain"], init, ATOL_LADDER_FULL, 10)
+         f"vs plain", out["kernel"], out["plain"], init, atol, phase)
     rm_k, rm_p = rmse(out["kernel"], test), rmse(out["plain"], test)
-    log(f"# phase 10: {name} tRMSE kernel {rm_k:.6f} plain {rm_p:.6f}")
+    log(f"# phase {phase}: {name} tRMSE kernel {rm_k:.6f} plain {rm_p:.6f}")
     if not abs(rm_k - rm_p) <= 1e-3:
         raise AssertionError(f"{name}: tRMSE of kernel and plain disagree")
     p = runner.plan
     return (median(times["kernel"]), median(times["plain"]),
-            window_bound(plan, p.n_gu * p.tile_u, p.n_gv * p.tile_v, n,
-                         cfg.dim))
+            bound_fn(plan, p.n_gu * p.tile_u, p.n_gv * p.tile_v, n,
+                     cfg.dim)), out["plain"]
 
 
 def phase_time(torch, td, cfg, train, test, params_final, rm):
@@ -761,7 +797,7 @@ def phase_time_ladder(torch, tc, cfg, train, test, init, sched):
         name = ("packed" if not hasattr(r, "sub") else
                 f"slot{' striped' if r.striped else ''} sub {r.sub}")
         timed.append(time_one_epoch(torch, tc, cfg, r, train, test, init, ep,
-                                    name))
+                                    name)[0])
     return timed[0], timed[1]
 
 
@@ -1311,6 +1347,41 @@ def phase_admf(torch, train, valid, test, phase, dim, eta, family, runner):
     return cfg, state, launches, timed
 
 
+def phase_slot_admf(torch, tas, tsl, atrain, avalid, test):
+    """Phase 17: ``train_admf`` at dim 8 at the eta the slot gate admits
+    (the striped slot AdaptReg runner), one epoch timed; returns its
+    launches and times."""
+    from tpu_mf_torch.config import TrainConfig
+
+    cfg = TrainConfig(alg="admf", gb=atrain.mean_rating())
+    t = time.perf_counter()
+    lb, _ = tsl.slot_dup_lower_bound(atrain, dim=DIM_AD8, balance=True)
+    # the runner train_admf builds at dim 8 (loop.py's _admf_runner): its
+    # window statistics set eta, and it is the one phase 17 times
+    probe = tas.SlotAdRegRunner(atrain, avalid, seed=cfg.seed, n_plans=2,
+                                dim=DIM_AD8, striped=True, device=DEVICE)
+    eta8 = min(ETA_AD, 0.18 / max(lb, probe._dup_max[8], probe._vdup_max[8]))
+    log(f"# phase 17: slot gate at dim {DIM_AD8}: pigeonhole bound {lb}, "
+        f"plan duplicate maxima user {probe._dup_max[8]}, item "
+        f"{probe._vdup_max[8]}: eta {eta8:g} (host statistics in "
+        f"{time.perf_counter() - t:.1f} s)")
+    if eta8 >= 1e-5:
+        _, _, launches, timed = phase_admf(
+            torch, atrain, avalid, test, 17, DIM_AD8, eta8, "slot_adreg",
+            probe)
+        return launches, timed
+    # not forced past the gate: the main path at dim 8 is gen-1's, and the
+    # slot kernel is only timed against its plain version
+    log(f"# phase 17: the slot gate refuses every eta >= 1e-5 at dim "
+        f"{DIM_AD8}: train_admf runs the gen-1 runner at eta {ETA_AD:g}")
+    phase_admf(torch, atrain, avalid, test, 17, DIM_AD8, ETA_AD, "adreg",
+               None)
+    return 0, time_segments(
+        torch, probe, admf_state(torch, atrain, DIM_AD8, cfg.gb, LAM_AD,
+                                 seed=cfg.seed),
+        ETA_AD, len(atrain), 17, "slot_adreg")
+
+
 def phase_checkpoint_admf(torch, cfg, state, nu, nv):
     from tpu_mf_torch.io.checkpoint import load_mf_binary, save_mf_binary
 
@@ -1333,6 +1404,213 @@ def phase_checkpoint_admf(torch, cfg, state, nu, nv):
         f"lam_u {lam:g}) reads back")
 
 
+def phase_compare_mega_free(torch, tc, tpk, tm, tf, rng):
+    """Phase 19: the mega runner's window plans and the free-column kernel
+    against their plain versions on the card, both working types, on 6x6
+    tiles at ML-10M density. Mega at pack 1 (dim 64, tiles 512, mxu_pred
+    on) and pack 8 (dim 8, tiles 1024), each padded with all-sentinel
+    batches, at 8/8 groups and at an eta whose windows span 2+ columns;
+    free at dim 64, tiles 128, groups 8/8, 1/1 and 8/1, saturation on and
+    off, on a plan whose last batch has sentinel columns."""
+    from tpu_mf_torch.models.mf import params_from_numpy
+
+    errs = {"mega": {}, "free": {}}
+    for dim in (DIM, DIM8):
+        pack = tm.mega_packing_factor(dim)
+        tile = 512 if pack == 1 else 1024
+        ds, _ = corner(rng, tile, tile)
+        nb = tpk.prepare_cells_packed(ds, tile, tile, 8192, 0, pack).u.shape[0]
+        mega = next(m for m in range(8, 1, -1) if nb % m)
+        e = compare_window_runner(
+            torch, tc, lambda mxu: tm.MegaEpochRunner(
+                ds, dim=dim, mega=mega, mxu=mxu, saturate=True,
+                device=DEVICE),
+            ds, tables(rng, ds, dim), dim, "mega",
+            f"pack {pack}, tiles {tile}, mega {mega} ({nb} batches padded)",
+            ATOL_CELL, 19)
+        for k, v in e.items():
+            errs["mega"][k] = max(errs["mega"].get(k, 0.0), v)
+    ds, n = corner(rng, 128, 128)
+    tabs = tables(rng, ds, DIM)
+    eta, lam, gb = 0.02, 5e-3, 3.5
+    for mxu in ("float32", "bfloat16"):
+        for saturate in (False, True):
+            r = tf.FreeEpochRunner(ds, mxu=mxu, saturate=saturate,
+                                   device=DEVICE)
+            r.pad(params_from_numpy(*tabs, gb, device=DEVICE))
+            sentinel = int((r.plan.w.sum(axis=1) == 0).sum())
+            if not sentinel:
+                raise AssertionError("the free plan has no sentinel column")
+            for groups in ((8, 8), (1, 1), (8, 1)):
+                got = r.pad(params_from_numpy(*tabs, gb, device=DEVICE))
+                want = tuple(t.clone() for t in got)
+                hyper = (eta, lam, gb, max(1.0, 0.2 / eta), DIM, *groups,
+                         r.work_dtype, saturate, r.mxu_pred)
+                tf.free_epoch_reference(*want, r._dev[0], *hyper)
+                tf.free_epoch(*got, r._dev[0], *hyper)
+                torch.cuda.synchronize()
+                err = max(float((a - b).abs().max())
+                          for a, b in zip(got, want))
+                errs["free"][mxu] = max(errs["free"].get(mxu, 0.0), err)
+                log(f"# phase 19: free vs plain, {mxu}, groups "
+                    f"{groups[0]}/{groups[1]}, saturate {saturate}, batch "
+                    f"{r.batch} at tiles 128x128, {r.plan.u.shape[0]} "
+                    f"batches ({sentinel} sentinel columns), dim {DIM}, {n} "
+                    f"ratings: max_abs_err {err:.3e} (atol "
+                    f"{ATOL_CELL[mxu]:g})")
+                if not err <= ATOL_CELL[mxu]:
+                    raise AssertionError(f"free disagrees ({mxu}): {err}")
+    return errs
+
+
+def run_runner(torch, cfg, runner, init, test, phase, family, counts):
+    """The runner's own path, as ``_mf_runner_schedule``'s runners are
+    driven: ``pad``, EPOCHS epochs at ``cfg.eta_at``, ``trim``, with every
+    count in ``counts`` set to 0 just before and read after each epoch.
+    ``family`` and the wrapper its kernel counts on must rise by 1 every
+    epoch and no other count may move; tRMSE must be finite and fall.
+    Returns the final tables and the launches."""
+    from tpu_mf_torch.models.mf import rmse
+
+    for c in counts.values():
+        c.launches = 0
+    t = time.perf_counter()
+    tables = runner.pad(init)
+    marks, rm = [], []
+    for it in range(1, EPOCHS + 1):
+        eta = cfg.eta_at(it)
+        a = time.perf_counter()
+        runner.epoch(tables, eta, cfg.lam, cfg.gb, epoch_idx=it)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - a) * 1e3
+        marks.append({k: c.launches for k, c in counts.items()})
+        rm.append(rmse(runner.trim(tables), test))
+        log(f"iter#{it}\t{ms:.3f} ms\teta={eta:g}\tgroups="
+            f"{runner.pick_theta_groups(eta)}/{runner.pick_phi_groups(eta)}"
+            f"\ttRMSE={rm[-1]:.6f}")
+    wall = time.perf_counter() - t
+    per_epoch = {k: [b[k] - a[k] for a, b in zip([dict.fromkeys(counts, 0)]
+                                                 + marks, marks)]
+                 for k in counts}
+    log(f"# phase {phase}: {type(runner).__name__} on cuda, {EPOCHS} epochs "
+        f"in {wall:.1f} s (pad and eval included); launches per epoch "
+        + ", ".join(f"{k} {v}" for k, v in per_epoch.items()))
+    for k in per_epoch:
+        only(per_epoch, k, range(1, EPOCHS + 1) if k in family else ())
+    if not (all(map(math.isfinite, rm)) and rm[-1] < rm[0]):
+        raise AssertionError(f"tRMSE not finite and falling: {rm}")
+    return runner.trim(tables), sum(per_epoch[family[0]])
+
+
+def all_counts(tc, tm, tf):
+    """Every launch count: the kernel families' runners and wrappers."""
+    from tpu_mf_torch.ops import adreg_cells as tac
+    from tpu_mf_torch.ops import adreg_slot as tas
+    from tpu_mf_torch.ops import sgld_cells as tg
+    from tpu_mf_torch.ops import sgld_slot as tss
+
+    return {**counters(), "mega": tm.MegaEpochRunner,
+            "free": tf.FreeEpochRunner, "cell_epoch": tc.cell_epoch,
+            "free_epoch": tf.free_epoch, "sgld": tg.SgldCellRunner,
+            "slot_sgld": tss.SlotSgldRunner, "adreg": tac.AdRegCellRunner,
+            "slot_adreg": tas.SlotAdRegRunner}
+
+
+def phase_mega(torch, tc, tm, tf, train, test):
+    """Phase 20: ``MegaEpochRunner`` at dim 64 (pack 1, tiles 512, batch
+    8192, mxu_pred on) on the stand-in, as ``_mf_runner_schedule`` builds
+    its runners (two plans, saturating, bf16), 3 epochs from ``init_mf``'s
+    tables at the CLI defaults; then epoch 1 timed against the plain
+    version."""
+    from tpu_mf_torch.config import TrainConfig
+    from tpu_mf_torch.models.mf import init_mf
+
+    cfg = TrainConfig(dim=DIM, iters=EPOCHS, gb=train.mean_rating())
+    t = time.perf_counter()
+    r = tm.MegaEpochRunner(train, dim=DIM, seed=cfg.seed, n_plans=2,
+                           saturate=True, mxu="bfloat16",
+                           device=DEVICE).materialize()
+    torch.cuda.synchronize()
+    eta = cfg.eta_at(1)
+    log(f"# phase 20: mega runner built and staged in "
+        f"{time.perf_counter() - t:.1f} s: pack {r.pack}, mxu_pred "
+        f"{r.mxu_pred}, tiles {r.tile_u}x{r.tile_v}, batch {r.batch}, mega "
+        f"{r.mega}, {[p.u.shape[0] for p in r.plans]} batches; window "
+        f"duplicate maxima user {r._dup_max}, item {r._vdup_max}")
+    init = init_mf(train.nu, train.nv, DIM, cfg.gb,
+                   torch.Generator().manual_seed(cfg.seed), DEVICE)
+    _, launches = run_runner(torch, cfg, r, init, test, 20,
+                             ("mega", "cell_epoch"), all_counts(tc, tm, tf))
+    timed, _ = time_one_epoch(torch, tc, cfg, r, train, test, init, 1,
+                              "mega", 20, ATOL_CELL_FULL)
+    log(f"# phase 20: epoch 1 at eta {eta:g}: groups "
+        f"{r.pick_theta_groups(eta)}/{r.pick_phi_groups(eta)}")
+    return launches, timed
+
+
+def phase_free(torch, tc, tm, tf, train, test):
+    """Phase 21: ``FreeEpochRunner`` at dim 64 (tiles 128, picked batch,
+    balance and saturation on, mxu_pred on) on the stand-in, two plans,
+    bf16, 3 epochs from ``init_mf``'s tables at the CLI defaults; then
+    epoch 1 timed against the plain version, and the same epoch once as
+    the one-user-tile window plan (``free_window_plan``) on
+    ``csrc/cell_sgd.cu``, held to the plain version too."""
+    from tpu_mf_torch.config import TrainConfig
+    from tpu_mf_torch.models.mf import init_mf
+
+    cfg = TrainConfig(dim=DIM, iters=EPOCHS, gb=train.mean_rating())
+    t = time.perf_counter()
+    r = tf.FreeEpochRunner(train, seed=cfg.seed, n_plans=2, mxu="bfloat16",
+                           device=DEVICE).materialize()
+    torch.cuda.synchronize()
+    p = r.plan
+    cols = p.gu.size
+    log(f"# phase 21: free runner built and staged in "
+        f"{time.perf_counter() - t:.1f} s: tiles {p.tile_u}x{p.tile_v} "
+        f"({p.n_gu}x{p.n_gv}), batch {r.batch}, "
+        f"{[q.u.shape[0] for q in r.plans]} batches, {cols} columns, fill "
+        f"{p.n_real / p.u.size:.3f}, "
+        f"{int((p.w.sum(axis=1) == 0).sum())} sentinel columns; window "
+        f"duplicate maxima user {r._dup_max}, item {r._vdup_max}")
+    init = init_mf(train.nu, train.nv, DIM, cfg.gb,
+                   torch.Generator().manual_seed(cfg.seed), DEVICE)
+    _, launches = run_runner(torch, cfg, r, init, test, 21,
+                             ("free", "free_epoch"), all_counts(tc, tm, tf))
+    eta, it = cfg.eta_at(1), 1
+    tg, pg = r.pick_theta_groups(eta), r.pick_phi_groups(eta)
+    cap = max(1.0, 0.2 / eta)
+
+    def plain(tabs, eta, it):
+        tf.free_epoch_reference(*tabs, r._dev[it % 2], eta, cfg.lam, cfg.gb,
+                                cap, DIM, tg, pg, r.work_dtype, r.saturate,
+                                r.mxu_pred)
+
+    timed, want = time_one_epoch(torch, tc, cfg, r, train, test, init, it,
+                                 "free", 21, ATOL_CELL_FULL, plain,
+                                 free_bound)
+    t = time.perf_counter()
+    window = tc.upload_plan(tf.free_window_plan(r.plans[it % 2]), DEVICE)
+    torch.cuda.synchronize()
+    log(f"# phase 21: one-user-tile window plan (tile_u "
+        f"{window.tile_u}) converted and staged in "
+        f"{time.perf_counter() - t:.1f} s")
+    ms = []
+    for _ in range(2):
+        tabs = r.pad(init)
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        tc.cell_epoch(*tabs, window, eta, cfg.lam, cfg.gb, cap, DIM, tg, pg,
+                      r.work_dtype, r.saturate, r.mxu_pred)
+        b.record()
+        torch.cuda.synchronize()
+        ms.append(a.elapsed_time(b))
+    log(f"# phase 21: the epoch as a one-user-tile window plan on cell_sgd: "
+        f"epoch ms {[round(x, 3) for x in ms]} (free_cells {timed[0]:.3f})")
+    hold("the one-user-tile window plan on cell_sgd vs the free plain "
+         "version", r.trim(tabs), want, init, ATOL_CELL_FULL, 21)
+    return launches, timed
+
+
 def entry(name, replaces, launches, err, timed, source=None):
     ms, plain_ms, (bound_ms, bound_by) = timed
     return {"name": name, "route": "cuda",
@@ -1344,7 +1622,34 @@ def entry(name, replaces, launches, err, timed, source=None):
             "library_ms": None}
 
 
-def main() -> int:
+# phases that run together: a later one reads what the first one made
+PHASE_GROUPS = ((1,), (2,), (3, 5), (4,), (6,), (7, 8, 9, 10), (11,),
+                (12, 14), (13,), (15,), (16, 18), (17,), (19,), (20,), (21,))
+
+
+def parse_phases(argv):
+    """The phases to run: every one without ``--phases``, else the listed
+    ones ("1,19-21"), each widened to its group, with phase 1 always."""
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--phases", default=None,
+                    help="comma-separated phases or ranges, e.g. 1,19-21")
+    args = ap.parse_args(argv)
+    every = {p for g in PHASE_GROUPS for p in g}
+    if args.phases is None:
+        return every
+    asked = set()
+    for part in args.phases.split(","):
+        lo, _, hi = part.partition("-")
+        asked.update(range(int(lo), int(hi or lo) + 1))
+    if not asked <= every:
+        ap.error(f"no phase {sorted(asked - every)}")
+    return {1} | {p for g in PHASE_GROUPS if asked & set(g) for p in g}
+
+
+def main(argv=None) -> int:
+    phases = parse_phases(argv)
     import torch
 
     if not torch.cuda.is_available():
@@ -1357,6 +1662,8 @@ def main() -> int:
     from tpu_mf_torch.ops import adreg_slot as tas
     from tpu_mf_torch.ops import sgd_cells as tc
     from tpu_mf_torch.ops import sgd_dense as td
+    from tpu_mf_torch.ops import sgd_free as tf
+    from tpu_mf_torch.ops import sgd_mega as tm
     from tpu_mf_torch.ops import sgd_packed as tpk
     from tpu_mf_torch.ops import sgd_slot as tsl
     from tpu_mf_torch.ops import sgld_cells as tg
@@ -1364,105 +1671,142 @@ def main() -> int:
 
     last = [time.perf_counter()]
 
-    def lap(phases):
+    def lap(done):
         now = time.perf_counter()
-        log(f"# phases {phases}: {now - last[0]:.1f} s")
+        log(f"# phases {done}: {now - last[0]:.1f} s")
         last[0] = now
 
+    def want(*ps):
+        return any(p in phases for p in ps)
+
+    def ran(*ps):
+        return all(p in phases for p in ps)
+
+    log(f"# phases to run: {sorted(phases)}")
+    t_start = time.perf_counter()
     card = phase_build()
-    errs = phase_compare(torch, td, np.random.default_rng(0))
-    train, test = load_data()
-    cell_errs = phase_compare_cells(torch, tc, np.random.default_rng(1),
-                                    tc.pick_cell_geometry(train))
-    lap("1-2")
-    cfg, params, rm, launches = phase_train(torch, train, test)
-    dense_t = phase_time(torch, td, cfg, train, test, params, rm)
-    lap("3")
-    ccfg, cparams, crm, claunches = phase_train_cells(torch, train, test)
-    cell_t = phase_time_cells(torch, tc, ccfg, train, test, cparams, crm)
-    phase_checkpoint(torch, cfg, params)
-    lap("4-5")
-    phase_train_rank8(torch, train, test)
-    (lcfg, lparams, lrm, geo_packed, geo_slots, plaunches,
-     slaunches) = phase_train_ladder(torch, train, test)
-    lap("6-7")
-    lerrs = phase_compare_ladder(torch, tc, tpk, tsl,
-                                 np.random.default_rng(2), geo_packed,
-                                 geo_slots)
-    init, sched = phase_replay_ladder(torch, tc, lcfg, train, test, lparams,
-                                      lrm, geo_packed, geo_slots)
-    packed_t, slot_t = phase_time_ladder(torch, tc, lcfg, train, test, init,
-                                         sched)
-    lap("8-10")
-    sgld_errs = phase_compare_sgld(torch, tg, tss, np.random.default_rng(3))
-    dcfg, dstate, sgld_launches, sgld_t = phase_dpmf(
-        torch, tg, tss, train, test, 12, DIM_DP, "sgld")
-    _, _, slot_sgld_launches, slot_sgld_t = phase_dpmf(
-        torch, tg, tss, train, test, 13, DIM_DP8, "slot_sgld")
-    phase_checkpoint_dpmf(torch, dcfg, dstate)
-    lap("11-14")
-    ad_errs = phase_compare_adreg(torch, tac, tas, np.random.default_rng(4))
-    lap("15")
-    atrain, avalid = train.split(0.05, seed=3)
-    acfg, astate, ad_launches, ad_t = phase_admf(
-        torch, atrain, avalid, test, 16, DIM_AD, ETA_AD, "adreg", None)
-    lap("16")
-    t = time.perf_counter()
-    lb, _ = tsl.slot_dup_lower_bound(atrain, dim=DIM_AD8, balance=True)
-    # the runner train_admf builds at dim 8 (loop.py's _admf_runner): its
-    # window statistics set eta, and it is the one phase 17 times
-    probe = tas.SlotAdRegRunner(atrain, avalid, seed=acfg.seed, n_plans=2,
-                                dim=DIM_AD8, striped=True, device=DEVICE)
-    eta8 = min(ETA_AD, 0.18 / max(lb, probe._dup_max[8], probe._vdup_max[8]))
-    log(f"# phase 17: slot gate at dim {DIM_AD8}: pigeonhole bound {lb}, "
-        f"plan duplicate maxima user {probe._dup_max[8]}, item "
-        f"{probe._vdup_max[8]}: eta {eta8:g} (host statistics in "
-        f"{time.perf_counter() - t:.1f} s)")
-    if eta8 >= 1e-5:
-        _, _, slot_ad_launches, slot_ad_t = phase_admf(
-            torch, atrain, avalid, test, 17, DIM_AD8, eta8, "slot_adreg",
-            probe)
-    else:
-        # not forced past the gate: the main path at dim 8 is gen-1's, and
-        # the slot kernel is only timed against its plain version
-        log(f"# phase 17: the slot gate refuses every eta >= 1e-5 at dim "
-            f"{DIM_AD8}: train_admf runs the gen-1 runner at eta {ETA_AD:g}")
-        phase_admf(torch, atrain, avalid, test, 17, DIM_AD8, ETA_AD, "adreg",
-                   None)
-        slot_ad_launches = 0
-        slot_ad_t = time_segments(
-            torch, probe, admf_state(torch, atrain, DIM_AD8, acfg.gb, LAM_AD,
-                                     seed=acfg.seed),
-            ETA_AD, len(atrain), 17, "slot_adreg")
-    phase_checkpoint_admf(torch, acfg, astate, atrain.nu, atrain.nv)
-    lap("17-18")
+    if want(*range(2, 11), 12, 13, 14, 16, 17, 18, 20, 21):
+        train, test = load_data()
+    cell_src = "tpu_mf_torch/csrc/cell_sgd.cu"
+    sgld_src = "tpu_mf_torch/csrc/sgld_cells.cu"
+    adreg_src = "tpu_mf_torch/csrc/adreg_cells.cu"
+    free_src = "tpu_mf_torch/csrc/free_cells.cu"
+    ent = {}  # kernel name: its entry, where its phases ran
+    if want(2):
+        errs = phase_compare(torch, td, np.random.default_rng(0))
+        cell_errs = phase_compare_cells(torch, tc, np.random.default_rng(1),
+                                        tc.pick_cell_geometry(train))
+        lap("1-2")
+    if want(3):
+        cfg, params, rm, launches = phase_train(torch, train, test)
+        dense_t = phase_time(torch, td, cfg, train, test, params, rm)
+        phase_checkpoint(torch, cfg, params)
+        lap("3, 5")
+        if want(2):
+            ent["dense_cell"] = entry(
+                "dense_cell", "tpu_mf/ops/pallas_sgd_dense.py:239", launches,
+                errs["bfloat16"], dense_t)
+    if want(4):
+        ccfg, cparams, crm, claunches = phase_train_cells(torch, train, test)
+        cell_t = phase_time_cells(torch, tc, ccfg, train, test, cparams, crm)
+        lap("4")
+        if want(2):
+            ent["cell_sgd"] = entry(
+                "cell_sgd", "tpu_mf/ops/pallas_sgd.py:412", claunches,
+                cell_errs["bfloat16"], cell_t)
+    if want(6):
+        phase_train_rank8(torch, train, test)
+        lap("6")
+    if want(7):
+        (lcfg, lparams, lrm, geo_packed, geo_slots, plaunches,
+         slaunches) = phase_train_ladder(torch, train, test)
+        lerrs = phase_compare_ladder(torch, tc, tpk, tsl,
+                                     np.random.default_rng(2), geo_packed,
+                                     geo_slots)
+        init, sched = phase_replay_ladder(torch, tc, lcfg, train, test,
+                                          lparams, lrm, geo_packed,
+                                          geo_slots)
+        packed_t, slot_t = phase_time_ladder(torch, tc, lcfg, train, test,
+                                             init, sched)
+        lap("7-10")
+        ent["packed"] = entry(
+            "packed", "tpu_mf/ops/pallas_sgd_packed.py:226", plaunches,
+            lerrs["packed"]["bfloat16"], packed_t, cell_src)
+        ent["slot"] = entry(
+            "slot", "tpu_mf/ops/pallas_sgd_slot.py:606", slaunches,
+            lerrs["slot"]["bfloat16"], slot_t, cell_src)
+    if want(11):
+        sgld_errs = phase_compare_sgld(torch, tg, tss,
+                                       np.random.default_rng(3))
+    if want(12):
+        dcfg, dstate, sgld_launches, sgld_t = phase_dpmf(
+            torch, tg, tss, train, test, 12, DIM_DP, "sgld")
+        phase_checkpoint_dpmf(torch, dcfg, dstate)
+    if want(13):
+        _, _, slot_sgld_launches, slot_sgld_t = phase_dpmf(
+            torch, tg, tss, train, test, 13, DIM_DP8, "slot_sgld")
+    if want(11, 12, 13):
+        lap("11-14")
+    if ran(11, 12):
+        ent["sgld"] = entry(
+            "sgld", "tpu_mf/ops/pallas_sgld.py:120", sgld_launches,
+            sgld_errs["sgld"]["bfloat16"], sgld_t, sgld_src)
+    if ran(11, 13):
+        ent["slot_sgld"] = entry(
+            "slot_sgld", "tpu_mf/ops/pallas_sgld_slot.py:59",
+            slot_sgld_launches, sgld_errs["slot_sgld"]["bfloat16"],
+            slot_sgld_t, sgld_src)
+    if want(15):
+        ad_errs = phase_compare_adreg(torch, tac, tas,
+                                      np.random.default_rng(4))
+        lap("15")
+    if want(16, 17):
+        atrain, avalid = train.split(0.05, seed=3)
+    if want(16):
+        acfg, astate, ad_launches, ad_t = phase_admf(
+            torch, atrain, avalid, test, 16, DIM_AD, ETA_AD, "adreg", None)
+        phase_checkpoint_admf(torch, acfg, astate, atrain.nu, atrain.nv)
+        lap("16, 18")
+    if want(17):
+        slot_ad_launches, slot_ad_t = phase_slot_admf(torch, tas, tsl,
+                                                      atrain, avalid, test)
+        lap("17")
+    if ran(15, 16):
+        ent["adreg"] = entry(
+            "adreg", "tpu_mf/ops/pallas_adreg.py:46", ad_launches,
+            ad_errs["adreg"]["bfloat16"], ad_t, adreg_src)
+    if ran(15, 17):
+        ent["slot_adreg"] = entry(
+            "slot_adreg", "tpu_mf/ops/pallas_adreg_slot.py:51",
+            slot_ad_launches, ad_errs["slot_adreg"]["bfloat16"], slot_ad_t,
+            adreg_src)
+    if want(19):
+        mf_errs = phase_compare_mega_free(torch, tc, tpk, tm, tf,
+                                          np.random.default_rng(5))
+        lap("19")
+    if want(20):
+        mega_launches, mega_t = phase_mega(torch, tc, tm, tf, train, test)
+        lap("20")
+        if want(19):
+            ent["mega"] = entry(
+                "mega", "tpu_mf/ops/pallas_sgd_mega.py:105", mega_launches,
+                mf_errs["mega"]["bfloat16"], mega_t, cell_src)
+    if want(21):
+        free_launches, free_t = phase_free(torch, tc, tm, tf, train, test)
+        lap("21")
+        if want(19):
+            ent["free"] = entry(
+                "free", "tpu_mf/ops/pallas_sgd_free.py:183", free_launches,
+                mf_errs["free"]["bfloat16"], free_t, free_src)
     bad = sorted(m for m in sys.modules
                  if m.split(".")[0] in ("jax", "jaxlib", "tpu_mf"))
     if bad:
         raise AssertionError(f"the port imported JAX or tpu_mf: {bad[:5]}")
-    cell_src = "tpu_mf_torch/csrc/cell_sgd.cu"
-    sgld_src = "tpu_mf_torch/csrc/sgld_cells.cu"
-    adreg_src = "tpu_mf_torch/csrc/adreg_cells.cu"
-    log(json.dumps({"kernels": [
-        entry("dense_cell", "tpu_mf/ops/pallas_sgd_dense.py:239", launches,
-              errs["bfloat16"], dense_t),
-        entry("cell_sgd", "tpu_mf/ops/pallas_sgd.py:412", claunches,
-              cell_errs["bfloat16"], cell_t),
-        entry("packed", "tpu_mf/ops/pallas_sgd_packed.py:226", plaunches,
-              lerrs["packed"]["bfloat16"], packed_t, cell_src),
-        entry("slot", "tpu_mf/ops/pallas_sgd_slot.py:606", slaunches,
-              lerrs["slot"]["bfloat16"], slot_t, cell_src),
-        entry("sgld", "tpu_mf/ops/pallas_sgld.py:120", sgld_launches,
-              sgld_errs["sgld"]["bfloat16"], sgld_t, sgld_src),
-        entry("slot_sgld", "tpu_mf/ops/pallas_sgld_slot.py:59",
-              slot_sgld_launches, sgld_errs["slot_sgld"]["bfloat16"],
-              slot_sgld_t, sgld_src),
-        entry("adreg", "tpu_mf/ops/pallas_adreg.py:46", ad_launches,
-              ad_errs["adreg"]["bfloat16"], ad_t, adreg_src),
-        entry("slot_adreg", "tpu_mf/ops/pallas_adreg_slot.py:51",
-              slot_ad_launches, ad_errs["slot_adreg"]["bfloat16"],
-              slot_ad_t, adreg_src),
-    ]}))
+    log(f"# phases {sorted(phases)}: {time.perf_counter() - t_start:.1f} s")
+    kinds = [k for k in ("dense_cell", "cell_sgd", "packed", "slot", "sgld",
+                         "slot_sgld", "adreg", "slot_adreg", "mega", "free")
+             if k in ent]
+    log(json.dumps({"kernels": [ent[k] for k in kinds]}))
     log(card)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

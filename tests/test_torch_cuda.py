@@ -19,6 +19,8 @@ from tpu_mf_torch.ops import adreg_cells as tac
 from tpu_mf_torch.ops import adreg_slot as tas
 from tpu_mf_torch.ops import sgd_cells as tc
 from tpu_mf_torch.ops import sgd_dense as td
+from tpu_mf_torch.ops import sgd_free as tf
+from tpu_mf_torch.ops import sgd_mega as tm
 from tpu_mf_torch.ops import sgd_packed as tpk
 from tpu_mf_torch.ops import sgd_slot as tsl
 from tpu_mf_torch.train import train_mf
@@ -444,3 +446,112 @@ def test_train_admf_on_gpu_runs_the_kernel(cuda, dim, family):
     rm = [float(x.split("tRMSE=")[1]) for x in log if "tRMSE=" in x]
     assert np.all(np.isfinite(rm)) and rm[-1] < rm[0], rm
     assert min(float(x) for x in out[5:]) >= 0
+
+
+def zipf_free_data():
+    """3 x 4 tiles of 128 with zipfy heads, sub 128 (no sentinel column)."""
+    return synthetic_ratings(380, 500, 40000, rank=3, noise=0.3, seed=5,
+                             zipf=1.0, zipf_q=20.0)
+
+
+def sentinel_free_data():
+    """One item tile: the last batch's sentinel columns share item tile 0
+    with its real columns."""
+    return synthetic_ratings(300, 100, 3100, rank=3, noise=0.3, seed=5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("saturate", [False, True])
+@pytest.mark.parametrize("data,groups", [
+    ("zipf", (8, 8)), ("zipf", (1, 1)), ("zipf", (2, 4)),
+    ("sentinel", (1, 1)), ("sentinel", (8, 2))])
+@pytest.mark.parametrize("mxu,mxu_pred,atol", [
+    ("float32", True, 1e-4), ("bfloat16", True, 2e-3),
+    ("bfloat16", False, 2e-3)])
+def test_free_kernel_matches_reference(cuda, mxu, mxu_pred, atol, data,
+                                       groups, saturate):
+    """free_epoch (csrc/free_cells.cu) against free_epoch_reference on the
+    card, at dim 40, per-column user and item tiles, pinned groups, with
+    saturation on and off, and on a plan whose trailing sentinel columns
+    hold a tile's last touch; the window-plan tolerances of
+    test_cell_kernel_matches_reference."""
+    ds = zipf_free_data() if data == "zipf" else sentinel_free_data()
+    tabs = np_tables(ds.nu, ds.nv, 40, seed=6, gb=3.0)
+    r = tf.FreeEpochRunner(ds, batch=1024 if data == "zipf" else 256,
+                           mxu=mxu, saturate=saturate, groups_u=groups[0],
+                           groups_v=groups[1], mxu_pred=mxu_pred,
+                           device=cuda)
+    if data == "sentinel":
+        assert (r.plan.w.sum(axis=1) == 0).any()
+    base = r.pad(params_from_numpy(*tabs, device=cuda))
+    ref = tuple(t.clone() for t in base)
+    before, runs = tf.free_epoch.launches, tf.FreeEpochRunner.launches
+    tf.free_epoch_reference(*ref, r._dev[0], 0.02, 0.005, 3.0, 10.0, r.dim,
+                            *groups, r.work_dtype, saturate, mxu_pred)
+    r.epoch(base, 0.02, 0.005, 3.0)
+    torch.cuda.synchronize()
+    assert tf.free_epoch.launches == before + 1
+    assert tf.FreeEpochRunner.launches == runs + 1
+    for a, b in zip(base, ref):
+        assert float((a - b).abs().max()) <= atol
+    start = r.pad(params_from_numpy(*tabs, device=cuda))
+    assert float((base[1] - start[1]).abs().max()) > 1e-3  # it trained
+
+
+@pytest.mark.cuda
+def test_free_kernel_rejects_malformed_launches(cuda):
+    """A wrong dtype, shape or device raises ValueError and launches
+    nothing."""
+    r = tf.FreeEpochRunner(zipf_free_data(), batch=1024, device=cuda)
+    theta, phi = r.pad(params_from_numpy(*np_tables(380, 500, 40, 6, 3.0),
+                                         device=cuda))
+    plan = r._dev[0]
+    args = (0.02, 0.005, 3.0, 10.0, 40, 8, 8)
+    before = tf.free_epoch.launches
+    for t, p, pl in ((theta.half(), phi, plan), (theta[:-1], phi, plan),
+                     (theta, phi.cpu(), plan),
+                     (theta, phi, plan._replace(r=plan.r.double())),
+                     (theta, phi, plan._replace(u=plan.u[:, :4]))):
+        with pytest.raises(ValueError):
+            tf.free_epoch(t, p, pl, *args)
+    assert tf.free_epoch.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("groups", ["8/8", "adaptive"])
+@pytest.mark.parametrize("dim,pack", [(8, 8), (64, 1)])
+@pytest.mark.parametrize("mxu,atol", [("float32", 1e-4), ("bfloat16", 2e-3)])
+def test_mega_kernel_matches_reference(cuda, mxu, atol, dim, pack, groups):
+    """MegaEpochRunner on csrc/cell_sgd.cu against cell_epoch_reference on
+    the card, at pack 8 (tiles 256) and pack 1 (tiles 128, mxu_pred on),
+    with all-sentinel pad batches (mega 5), saturating, pinned and
+    adaptive groups; the tolerances of test_cell_kernel_matches_reference."""
+    ds = synthetic_ratings(500, 400, 40000, rank=3, noise=0.3, seed=5,
+                           zipf=1.0, zipf_q=20.0)
+    tabs = np_tables(ds.nu, ds.nv, dim, seed=6, gb=3.0)
+    fixed = dict(theta_groups=8, phi_groups=8) if groups == "8/8" else {}
+    tile = 256 if pack == 8 else 128
+    r = tm.MegaEpochRunner(ds, dim=dim, tile_u=tile, tile_v=tile, batch=1024,
+                           seed=7, mega=5, mxu=mxu, saturate=True,
+                           device=cuda, **fixed)
+    assert r.pack == pack and r.mxu_pred == (pack == 1)
+    unpadded = tpk.prepare_cells_packed(ds, tile, tile, 1024, 7, pack)
+    assert r.plan.u.shape[0] > unpadded.u.shape[0]  # pad batches
+    eta = 0.05 if groups == "8/8" else 0.19 / max(r._dup_max[2],
+                                                   r._vdup_max[2])
+    tg, pg = r.pick_theta_groups(eta), r.pick_phi_groups(eta)
+    assert (tg, pg) == (8, 8) if groups == "8/8" else max(tg, pg) <= 2
+    base = r.pad(params_from_numpy(*tabs, device=cuda))
+    ref = tuple(t.clone() for t in base)
+    before, runs = tc.cell_epoch.launches, tm.MegaEpochRunner.launches
+    tc.cell_epoch_reference(*ref, r._dev[0], eta, 0.005, 3.0,
+                            max(1.0, 0.2 / eta), r.dim, tg, pg,
+                            r.work_dtype, True, r.mxu_pred)
+    r.epoch(base, eta, 0.005, 3.0)
+    torch.cuda.synchronize()
+    assert tc.cell_epoch.launches == before + 1
+    assert tm.MegaEpochRunner.launches == runs + 1
+    for a, b in zip(base, ref):
+        assert float((a - b).abs().max()) <= atol
+    start = r.pad(params_from_numpy(*tabs, device=cuda))
+    assert float((base[0] - start[0]).abs().max()) > 1e-3  # it trained

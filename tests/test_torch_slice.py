@@ -348,9 +348,9 @@ def test_cli_metrics_and_trace(tmp_path):
 def test_port_runs_without_jax(tmp_path):
     """A fresh interpreter in which tpu_mf cannot be imported runs the CPU
     slice through the CLI (--alg mf, --alg dpmf and --alg admf) and the
-    fused dim-8 schedule (packed, then dense) and a fused AdaptReg epoch
-    pair on CPU tensors, and imports neither JAX nor any module of
-    tpu_mf."""
+    fused dim-8 schedule (packed, then dense), a fused AdaptReg epoch pair
+    and one mega and one free-column epoch on CPU tensors, and imports
+    neither JAX nor any module of tpu_mf."""
     args = write_data(tmp_path) + ["--device", "cpu"]
     dp_args = args + ["--alg", "dpmf", "--eta", "2e-5", "--hyperb", "1000",
                       "--result", str(tmp_path / "dp")]
@@ -383,6 +383,16 @@ _train_admf_fused(acfg, AdRegCellRunner(tr, te, tile_u=64, tile_v=64,
                   init_admf(tr.nu, tr.nv, 8, acfg.lam, acfg.gb,
                             torch.Generator().manual_seed(0), "cpu"),
                   te, print, _Observer(acfg, len(tr), print))
+from tpu_mf_torch.ops.sgd_free import FreeEpochRunner
+from tpu_mf_torch.ops.sgd_mega import MegaEpochRunner
+for runner in (MegaEpochRunner(tr, dim=8, tile_u=64, tile_v=64, batch=256,
+                               mxu="float32", device="cpu"),
+               FreeEpochRunner(tr, batch=512, mxu="float32", device="cpu")):
+    tabs = runner.epoch(runner.pad(params), 0.01, cfg.lam, cfg.gb)
+    out = runner.trim(tabs)
+    assert out.theta.shape == params.theta.shape
+    assert bool(torch.isfinite(out.theta).all())
+    assert not torch.equal(out.theta, params.theta)
 bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
        or m == "tpu_mf" or m.startswith("tpu_mf.")]
 assert bad == ["tpu_mf"] and sys.modules["tpu_mf"] is None, bad
@@ -421,6 +431,8 @@ def test_entry_points_default_to_cuda():
     from tpu_mf_torch.ops.adreg_slot import SlotAdRegRunner
     from tpu_mf_torch.ops.sgd_cells import CellEpochRunner
     from tpu_mf_torch.ops.sgd_dense import DenseEpochRunner
+    from tpu_mf_torch.ops.sgd_free import FreeEpochRunner
+    from tpu_mf_torch.ops.sgd_mega import MegaEpochRunner
     from tpu_mf_torch.ops.sgd_packed import PackedEpochRunner
     from tpu_mf_torch.ops.sgd_slot import SlotEpochRunner
     from tpu_mf_torch.ops.sgld_cells import SgldCellRunner
@@ -430,8 +442,8 @@ def test_entry_points_default_to_cuda():
     for fn in (train_mf, train_dpmf, train_admf, init_dpmf, init_admf,
                load_mf_binary, load_dpmf_binary, CellEpochRunner,
                DenseEpochRunner, PackedEpochRunner, SlotEpochRunner,
-               SgldCellRunner, SlotSgldRunner, AdRegCellRunner,
-               SlotAdRegRunner):
+               MegaEpochRunner, FreeEpochRunner, SgldCellRunner,
+               SlotSgldRunner, AdRegCellRunner, SlotAdRegRunner):
         assert inspect.signature(fn).parameters["device"].default == "cuda"
 
 

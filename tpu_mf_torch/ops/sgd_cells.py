@@ -316,8 +316,20 @@ def cell_epoch_reference(theta: torch.Tensor, phi: torch.Tensor,
     eta_t, lam_t, gb_t, cap_t = torch.tensor([eta, lam, gb, cap],
                                              dtype=torch.float32,
                                              device=theta.device)
+    window_reference(theta, phi, plan, (0, plan.u.shape[0]), eta_t, gb_t,
+                     dim, theta_groups, phi_groups, work, mxu_pred,
+                     window_apply(eta_t, lam_t, cap_t, theta.shape[1], dim,
+                                  saturate))
+
+
+def window_apply(eta_t: torch.Tensor, lam_t: torch.Tensor,
+                 cap_t: torch.Tensor, lanes: int, dim: int, saturate: bool):
+    """``apply(rows, deltas, side)`` of gen-1's window step: a row touched
+    k times (the deltas' count lane) decays by (1 - eta*lam)^k on its kept
+    lanes (``window_keep``) and takes its summed delta, scaled by
+    min(1, cap/k) when saturating; untouched rows stay as they are."""
     ln_decay = torch.log(1.0 - eta_t * lam_t)
-    keep = window_keep(theta.shape[1], dim, theta.device)
+    keep = window_keep(lanes, dim, eta_t.device)
 
     def apply(cur, d, side):
         k = d[:, dim + 2:dim + 3]
@@ -326,8 +338,7 @@ def cell_epoch_reference(theta: torch.Tensor, phi: torch.Tensor,
         return (cur * (1.0 + keep[side] * (torch.exp(k * ln_decay) - 1.0))
                 + d * keep[side])
 
-    window_reference(theta, phi, plan, (0, plan.u.shape[0]), eta_t, gb_t,
-                     dim, theta_groups, phi_groups, work, mxu_pred, apply)
+    return apply
 
 
 def window_keep(lanes: int, dim: int, dev) -> Tuple[torch.Tensor, ...]:
@@ -494,8 +505,8 @@ class WindowRunner:
     (``_window_plan``); all of them run ``cell_epoch``.
 
     - ``theta_groups`` / ``phi_groups`` None: picked per epoch from eta and
-      the plans' within-window duplicate counts (``col_ids`` maps a plan's
-      id array to the (NB, rows, 8) labels those counts are taken over).
+      the plans' within-window duplicate counts (``_dups``, which a family
+      overrides where its plan's ids are not the labels to count).
     - ``saturate`` caps a row's window step at min(1, cap/k),
       cap = max(1, 0.2/eta).
     - ``mxu`` names the working type: "bfloat16" (production: bf16 rows and
@@ -512,7 +523,7 @@ class WindowRunner:
 
     def __init__(self, plans, nu: int, nv: int, mxu: str,
                  theta_groups: int | None, phi_groups: int | None,
-                 saturate: bool, device: torch.device | str, col_ids=None,
+                 saturate: bool, device: torch.device | str,
                  map_u: np.ndarray | None = None,
                  map_v: np.ndarray | None = None):
         for g in (theta_groups, phi_groups):
@@ -530,18 +541,23 @@ class WindowRunner:
         self.mxu_pred = True
         self._warned: set = set()
         # element-wise max over every plan the rotation can pick
-        ids = col_ids or (lambda a: a)
         self._dup_max = self._vdup_max = None
         if theta_groups is None:
-            stats = [_dup_stats(ids(p.u), p.tile_u) for p in plans]
+            stats = [self._dups(p, "u") for p in plans]
             self._dup_max = {g: max(s[g] for s in stats) for g in GROUPS}
         if phi_groups is None:
-            stats = [_dup_stats(ids(p.v), p.tile_v) for p in plans]
+            stats = [self._dups(p, "v") for p in plans]
             self._vdup_max = {g: max(s[g] for s in stats) for g in GROUPS}
         self.device = torch.device(device)
         self._dev: list = []
         self.dim = None
         self.gb = 0.0
+
+    def _dups(self, plan, side: str) -> dict:
+        """``_dup_stats`` of one plan's user ("u") or item ("v") ids."""
+        if side == "u":
+            return _dup_stats(plan.u, plan.tile_u)
+        return _dup_stats(plan.v, plan.tile_v)
 
     def _window_plan(self, plan) -> CellPlan:
         return plan

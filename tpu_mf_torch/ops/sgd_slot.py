@@ -38,7 +38,7 @@ from tpu_mf_torch.data.coo import RatingsCOO
 from tpu_mf_torch.models.mf import MFParams
 from tpu_mf_torch.ops.plan_cache import cached_build
 from tpu_mf_torch.ops.rows import LANES, cdiv
-from tpu_mf_torch.ops.sgd_cells import CellPlan, WindowRunner
+from tpu_mf_torch.ops.sgd_cells import CellPlan, WindowRunner, _dup_stats
 
 
 class SlotPlan(NamedTuple):
@@ -517,10 +517,15 @@ class SlotEpochRunner(WindowRunner):
         plans = [builder(ds, tile_u, tile_v, sub, seed + 7919 * p, pack)
                  for p in range(max(1, n_plans))]
         super().__init__(plans, nu, nv, mxu, theta_groups, phi_groups,
-                         saturate, device,
-                         col_ids=lambda a: slot_col_ids(a, pack),
-                         map_u=map_u, map_v=map_v)
+                         saturate, device, map_u=map_u, map_v=map_v)
         self.mxu_pred = False  # the TPU kernel sums unrounded t*p
+
+    def _dups(self, plan: SlotPlan, side: str) -> dict:
+        """``tpu_mf``'s window statistics of a slot plan: over the lanes'
+        slot labels (``slot_col_ids``), on both sides."""
+        ids, tile = (plan.u, plan.tile_u) if side == "u" else (plan.v,
+                                                               plan.tile_v)
+        return _dup_stats(slot_col_ids(ids, self.pack), tile)
 
     def _window_plan(self, plan: SlotPlan) -> CellPlan:
         return to_window_plan(plan, self.striped)
