@@ -21,7 +21,9 @@ results: 3 and 5; 7-10; 12 and 14; 16 and 18:
      runner, kernel and plain version in turns, timed with CUDA events;
   4. the gen-1 path: the same run with ``use_dense=False`` (``--no-dense``):
      the gen-1 kernel must carry every epoch and the dense kernel none, and
-     tRMSE must fall; then its epochs timed as in phase 3;
+     tRMSE must fall; then its epochs timed as in phase 3; then epoch 1's
+     plan in turns with the same plan at every weight 0 (the walk's
+     skeleton), us per window step;
   5. the {result}_3 checkpoint written, read back and checked;
   6. the rank-8 path with dense on: ``train_mf`` at dim 8, 3 epochs: the
      lane-packed runner must carry epochs 1-2 and dense epoch 3;
@@ -784,9 +786,44 @@ def phase_time_cells(torch, tc, cfg, train, test, params_final, rm):
 
     ms = time_in_turns(torch, cfg, r, plain, train, test, params_final,
                        rm, 4, "cell_sgd", ATOL_CELL_FULL)
+    time_skeleton(torch, tc, cfg, r, train)
     p = r.plan
     return ms + (window_bound(r._dev[1], p.n_gu * p.tile_u,
                               p.n_gv * p.tile_v, len(train), DIM),)
+
+
+def time_skeleton(torch, tc, cfg, r, train):
+    """Epoch 1's plan on ``cell_sgd.cu`` and the same plan with every weight
+    0 (its skeleton: slot loads, the step's two grid syncs and the apply's
+    count reads; every slot returns at w == 0 and every row at k == 0), in
+    turns, timed with CUDA events; logs the us per window step of each and
+    their difference (the memory chain)."""
+    from tpu_mf_torch.models.mf import init_mf
+
+    eta = cfg.eta_at(1)
+    tg, pg = r.pick_theta_groups(eta), r.pick_phi_groups(eta)
+    plan = r._dev[1]
+    pad = plan._replace(w=torch.zeros_like(plan.w))
+    steps = plan.u.shape[0] * 8 // min(8 // tg, 8 // pg)
+    init = init_mf(train.nu, train.nv, DIM, cfg.gb,
+                   torch.Generator().manual_seed(cfg.seed), DEVICE)
+    ts = {"full": [], "skeleton": []}
+    for which in ("full", "skeleton", "skeleton", "full", "full", "skeleton"):
+        tabs = r.pad(init)
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        tc.cell_epoch(*tabs, plan if which == "full" else pad, eta, cfg.lam,
+                      cfg.gb, max(1.0, 0.2 / eta), DIM, tg, pg, r.work_dtype,
+                      r.saturate, r.mxu_pred)
+        b.record()
+        torch.cuda.synchronize()
+        ts[which].append(a.elapsed_time(b))
+    full, skel = median(ts["full"]), median(ts["skeleton"])
+    log(f"# phase 4: {steps} window steps (groups {tg}/{pg}): epoch ms "
+        f"{[round(x, 3) for x in ts['full']]}, all-padding ms "
+        f"{[round(x, 3) for x in ts['skeleton']]}; us per step: full "
+        f"{full * 1e3 / steps:.3f}, skeleton {skel * 1e3 / steps:.3f}, "
+        f"memory chain {(full - skel) * 1e3 / steps:.3f}")
 
 
 def phase_time_ladder(torch, tc, cfg, train, test, init, sched):

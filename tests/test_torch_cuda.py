@@ -555,3 +555,36 @@ def test_mega_kernel_matches_reference(cuda, mxu, atol, dim, pack, groups):
         assert float((a - b).abs().max()) <= atol
     start = r.pad(params_from_numpy(*tabs, device=cuda))
     assert float((base[0] - start[0]).abs().max()) > 1e-3  # it trained
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("groups", [(8, 8), (2, 4), (1, 1)],
+                         ids=lambda g: f"{g[0]}/{g[1]}")
+@pytest.mark.parametrize("mxu,atol", [("float32", 1e-4), ("bfloat16", 2e-3)])
+def test_cell_kernel_at_groups(cuda, mxu, atol, groups):
+    """cell_epoch against cell_epoch_reference at pinned groups 8/8, 2/4
+    and 1/1 (steps of 1, 2 and 8 columns), on a gen-1 plan whose
+    consecutive batches share a user tile and whose consecutive columns
+    share an item tile; the tolerances of
+    test_cell_kernel_matches_reference."""
+    ds = synthetic_ratings(500, 400, 40000, rank=3, noise=0.3, seed=5,
+                           zipf=1.0, zipf_q=20.0)
+    tg, pg = groups
+    r = tc.CellEpochRunner(ds, tile_u=96, tile_v=80, batch=1024, seed=7,
+                           mxu=mxu, saturate=True, theta_groups=tg,
+                           phi_groups=pg, device=cuda)
+    gu, gv = r.plan.gu, r.plan.gv
+    assert (gu[1:] == gu[:-1]).any() and (gv[:, 1:] == gv[:, :-1]).any()
+    base = r.pad(params_from_numpy(*np_tables(ds.nu, ds.nv, 40, 6, 3.0),
+                                   device=cuda))
+    ref = tuple(t.clone() for t in base)
+    eta = 0.02
+    assert (r.pick_theta_groups(eta), r.pick_phi_groups(eta)) == groups
+    tc.cell_epoch_reference(*ref, r._dev[0], eta, 0.005, 3.0, 10.0, r.dim,
+                            tg, pg, r.work_dtype, True, r.mxu_pred)
+    before = tc.cell_epoch.launches
+    r.epoch(base, eta, 0.005, 3.0)
+    torch.cuda.synchronize()
+    assert tc.cell_epoch.launches == before + 1
+    for a, b in zip(base, ref):
+        assert float((a - b).abs().max()) <= atol
