@@ -9,16 +9,27 @@ phase brings the rest of its group, the phases that read each other's
 results: 3 and 5; 7-10; 12 and 14; 16 and 18:
   1. build the CUDA kernels from the sources in the checkout, one nvcc per
      source, all at once;
-  2. each kernel against its plain PyTorch version on the card, in both
-     working types: one dense epoch on a 6x6 grid of 256x256 cells at dim
-     64; one gen-1 epoch at the geometry the gen-1 path picks for the
-     training set (``pick_cell_geometry``), on 6x6 tiles at ML-10M density;
+  2. each kernel against its plain PyTorch version on the card: one dense
+     epoch on a 6x6 grid of 256x256 cells, the diagonal walk at dim 64 in
+     both working types, the wavefront walk (bf16) at dims 8 and 64, the
+     routed walk (bf16) at dims 128 and 300 (rows of two and three 128-lane
+     groups, which the route sends to the diagonal walk);
+     one gen-1 epoch at the geometry the gen-1 path picks for the training
+     set (``pick_cell_geometry``), on 6x6 tiles at ML-10M density, in both
+     working types;
   3. the dense path: ``tpu_mf_torch.train.train_mf`` on ``cuda``, 3 epochs
      at dim 64 and the default CLI hyperparameters, on the ML-10M-shape
      calibrated stand-in (nu 69,878, nv 10,677, 10M ratings, split 90/10);
-     the dense kernel's launch count must rise in every epoch and tRMSE
-     must fall; then the same 3 epochs from the same tables through the
-     runner, kernel and plain version in turns, timed with CUDA events;
+     the dense kernel's launch count must rise in every epoch, every launch
+     on the wavefront walk, and tRMSE must fall; then the same 3 epochs from
+     the same tables through the runner, kernel and plain version in turns,
+     timed with CUDA events; then one epoch from init_mf's tables at dims
+     64 and 8 on the diagonal and the wavefront walk in turns (diagonal,
+     wavefront, wavefront, diagonal) and at dim 128 on its routed walk
+     (the diagonal walk, twice), the same diagonal walk composed of cuBLAS
+     batched products as a yardstick, the walk's plan, clusters and cells
+     in flight, and the walk's clocks per cell and block by phase at dims
+     64 and 8 from a diagnostic build (``-DTMF_WALK_CLOCKS``);
   4. the gen-1 path: the same run with ``use_dense=False`` (``--no-dense``):
      the gen-1 kernel must carry every epoch and the dense kernel none, and
      tRMSE must fall; then its epochs timed as in phase 3; then epoch 1's
@@ -106,6 +117,7 @@ written outside the checkout.
 
 from __future__ import annotations
 
+import ctypes
 import json
 import math
 import os
@@ -349,29 +361,46 @@ def tables(rng, ds, dim):
 
 
 def phase_compare(torch, td, rng):
-    """Dense kernel vs plain version, one epoch on 6x6 cells of 256x256."""
+    """Dense kernel vs plain version, one epoch on 6x6 cells of 256x256:
+    the diagonal walk at dim 64 in both working types, the wavefront walk
+    (bf16) at dims 8 and 64, and the routed walk (bf16) at dims 128 and 300
+    (rows of 2 and 3 lane groups, too wide for the wavefront walk: the
+    diagonal walk). Returns the largest error per (walk, working type)."""
     from tpu_mf_torch.models.mf import params_from_numpy
 
     ds, n = corner(rng, 256, 256)
-    tabs = tables(rng, ds, DIM)
     eta, lam, gb = 0.02, 5e-3, 3.5
     errs = {}
-    for mxu in ("float32", "bfloat16"):
-        r = td.DenseEpochRunner(ds, tile_u=256, tile_v=256, k_cells=6,
-                                mxu=mxu, device=DEVICE)
+    cases = [("diagonal", "float32", DIM), ("diagonal", "bfloat16", DIM)] + [
+        ("wavefront", "bfloat16", d) for d in (8, DIM)] + [
+        (None, "bfloat16", d) for d in (128, 300)]
+    runners = {}
+    for walk, mxu, dim in cases:
+        if mxu not in runners:
+            runners[mxu] = td.DenseEpochRunner(ds, tile_u=256, tile_v=256,
+                                               k_cells=6, mxu=mxu,
+                                               device=DEVICE)
+        r = runners[mxu]
+        walk = walk or td.dense_route(256, 256, dim, r.work_dtype,
+                                      r.cells.w.dtype)
+        tabs = tables(rng, ds, dim)
         got = r.pad(params_from_numpy(*tabs, gb, device=DEVICE))
         want = tuple(t.clone() for t in got)
         td.dense_epoch_reference(*want, r.cells, eta, lam, gb,
-                                 max(1.0, 0.2 / eta), DIM)
-        r.epoch(got, eta, lam, gb)
+                                 max(1.0, 0.2 / eta), dim)
+        td.dense_epoch(*got, r.cells, eta, lam, gb, max(1.0, 0.2 / eta), dim,
+                       walk=walk)
         torch.cuda.synchronize()
         err = max(float((a - b).abs().max()) for a, b in zip(got, want))
-        errs[mxu] = err
-        log(f"# phase 2: dense_cell vs plain, {mxu}, 6x6 cells of 256x256, "
-            f"dim {DIM}, {n} ratings: max_abs_err {err:.3e} "
-            f"(atol {ATOL[mxu]:g})")
+        errs[walk, mxu] = max(errs.get((walk, mxu), 0.0), err)
+        plan = td.plan_dense_walk(256, 256, dim, r.work_dtype,
+                                  r.cells.w.dtype)
+        log(f"# phase 2: dense_cell {walk} walk vs plain, {mxu}, 6x6 cells "
+            f"of 256x256, dim {dim} (wavefront plan {plan}), {n} ratings: "
+            f"max_abs_err {err:.3e} (atol {ATOL[mxu]:g})")
         if not err <= ATOL[mxu]:
-            raise AssertionError(f"dense_cell disagrees ({mxu}): {err}")
+            raise AssertionError(f"dense_cell {walk} disagrees ({mxu}, dim "
+                                 f"{dim}): {err}")
     return errs
 
 
@@ -465,6 +494,9 @@ def run_main_path(torch, train, test, phase, dim, iters, use_dense):
 
     for c in list(counts.values()) + [tc.cell_epoch]:
         c.launches = 0
+    walks = counts["dense_cell"].walks
+    for k in walks:
+        walks[k] = 0
     t = time.perf_counter()
     params = train_mf(cfg, train, test, log=record, device=DEVICE)
     torch.cuda.synchronize()
@@ -477,7 +509,10 @@ def run_main_path(torch, train, test, phase, dim, iters, use_dense):
         raise AssertionError("a window-plan launch outside the runners")
     log(f"# phase {phase}: train_mf(dim={dim}, use_dense={use_dense}) on "
         f"cuda, {iters} epochs in {wall:.1f} s (set-up included); launches "
-        f"per epoch " + ", ".join(f"{k} {v}" for k, v in per_epoch.items()))
+        f"per epoch " + ", ".join(f"{k} {v}" for k, v in per_epoch.items())
+        + f"; dense_cell launches by walk {walks}")
+    if walks["wavefront"] + walks["diagonal"] != sum(per_epoch["dense_cell"]):
+        raise AssertionError("a dense launch outside the two walks")
     rm = [float(x.split("tRMSE=")[1]) for x in lines if "tRMSE=" in x]
     if not (len(rm) == iters and all(map(math.isfinite, rm))
             and rm[-1] < rm[0]):
@@ -501,6 +536,11 @@ def phase_train(torch, train, test):
     if not any(x.startswith("# dense-cell kernel from epoch 1") for x in lines):
         raise AssertionError("the dense runner did not carry epoch 1")
     launches = only(per_epoch, "dense_cell", range(1, EPOCHS + 1))
+    from tpu_mf_torch.ops.sgd_dense import dense_epoch
+
+    if dense_epoch.walks["wavefront"] != launches:
+        raise AssertionError(f"the main path's dense epochs did not all run "
+                             f"on the wavefront walk: {dense_epoch.walks}")
     return cfg, params, rm, launches
 
 
@@ -758,7 +798,160 @@ def phase_time(torch, td, cfg, train, test, params_final, rm):
 
     ms = time_in_turns(torch, cfg, r, plain, train, test, params_final, rm,
                        3, "dense_cell", ATOL_FULL)
+    time_walks(torch, td, cfg, train, r)
     return ms + (dense_bound(r.cells, DIM),)
+
+
+def dense_epoch_library(torch, theta, phi, cells, eta, lam, gb, cap, dim):
+    """A yardstick the port never calls: the diagonal walk composed of
+    PyTorch calls, the three products as cuBLAS batched bf16 products
+    (``torch.baddbmm``, ``torch.bmm``, bf16 out) over the dim + 2 used
+    lanes, E and the apply elementwise in f32."""
+    n_gu, n_gvp, tu, tv = cells.s.shape
+    lanes = theta.shape[1]
+    kk = -(-(dim + 2) // 8) * 8
+    th = theta.view(n_gu, tu, lanes)
+    ph = phi.view(n_gvp, tv, lanes)
+    lane = torch.arange(kk, device=theta.device)
+    keep_u = (lane <= dim).float()
+    keep_v = ((lane < dim) | (lane == dim + 1)).float()
+    ln_decay = math.log(1.0 - eta * lam)
+    gbt = torch.full((1, 1, 1), gb, dtype=torch.bfloat16,
+                     device=theta.device)
+
+    def apply(cur, d, k, keep):
+        d = d * eta * torch.clamp(cap / torch.clamp(k, min=1.0), max=1.0)
+        return cur * (1.0 + keep * (torch.exp(k * ln_decay) - 1.0)) + d * keep
+
+    for diag in range(n_gu + n_gvp - 1):
+        i = torch.arange(max(0, diag - n_gvp + 1), min(n_gu - 1, diag) + 1,
+                         device=theta.device)
+        c = diag - i
+        t0, p0 = th[i, :, :kk], ph[c, :, :kk]
+        tb, pb = t0.bfloat16(), p0.bfloat16()
+        pred = torch.baddbmm(gbt, tb, pb.transpose(1, 2))
+        e = (cells.s[i, c].float()
+             - cells.w[i, c].float() * pred.float()).bfloat16()
+        dth = torch.bmm(e, pb).float()
+        dph = torch.bmm(e.transpose(1, 2), tb).float()
+        th[i, :, :kk] = apply(t0, dth, cells.ku[i, c].unsqueeze(2), keep_u)
+        ph[c, :, :kk] = apply(p0, dph, cells.kv[i, c].unsqueeze(2), keep_v)
+
+
+def time_walks(torch, td, cfg, train, r):
+    """One epoch at epoch 1's eta from init_mf's tables at dims 64, 128 and
+    8, on the diagonal and the wavefront walk in turns where the wavefront
+    walk takes the dim, else on the diagonal walk alone (CUDA events); at
+    dim 64 also the cuBLAS composition. The two walks' tables are held to
+    each other (both bf16); at dims 64 and 8 the walk's clocks by phase
+    (``walk_clocks``)."""
+    from tpu_mf_torch.models.mf import init_mf
+
+    cells, n = r.cells, len(train)
+    n_gu, n_gvp, tu, tv = cells.s.shape
+    eta = cfg.eta_at(1)
+    cap = max(1.0, 0.2 / eta)
+    for dim in (DIM, 128, DIM8):
+        init = init_mf(train.nu, train.nv, dim, cfg.gb,
+                       torch.Generator().manual_seed(cfg.seed), DEVICE)
+        start = r.pad(init)
+        plan = td.plan_dense_walk(tu, tv, dim, cells.s.dtype, cells.w.dtype)
+        route = td.dense_route(tu, tv, dim, cells.s.dtype, cells.w.dtype)
+        if plan is None:
+            turns = ("diagonal", "diagonal")
+            log(f"# phase 3: dim {dim}: route {route}; the wavefront walk "
+                f"does not take {dim + 2} lanes")
+        else:
+            turns = ("diagonal", "wavefront", "wavefront", "diagonal")
+            clusters = min(td.walk_clusters(plan, cells.w.dtype,
+                                            start[0].device), n_gu)
+            log(f"# phase 3: dim {dim}: route {route}; wavefront plan "
+                f"{plan}, {clusters} clusters of {plan.cluster} blocks "
+                f"resident, {min(clusters, n_gu, n_gvp)} cells in flight (a "
+                f"diagonal holds at most {min(n_gu, n_gvp)})")
+        times, out = {w: [] for w in turns}, {}
+        for walk in turns:
+            tabs = tuple(t.clone() for t in start)
+            a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            a.record()
+            td.dense_epoch(*tabs, cells, eta, cfg.lam, cfg.gb, cap, dim,
+                           walk=walk)
+            b.record()
+            torch.cuda.synchronize()
+            times[walk].append(a.elapsed_time(b))
+            out.setdefault(walk, tabs)
+        for walk, ts in times.items():
+            log(f"# phase 3: dim {dim} {walk} walk: epoch ms "
+                f"{[round(x, 3) for x in ts]}, rating updates/s "
+                f"{[round(n / (x / 1e3)) for x in ts]}")
+        if plan is None:
+            continue
+        diff = max(float((x - y).abs().max())
+                   for x, y in zip(out["diagonal"], out["wavefront"]))
+        log(f"# phase 3: dim {dim}: the walks' tables differ by {diff:.3e} "
+            f"(atol {ATOL['bfloat16']:g})")
+        if not diff <= ATOL["bfloat16"]:
+            raise AssertionError(f"the two dense walks disagree at dim {dim}")
+        walk_clocks(torch, td, cells, start, eta, cfg, cap, dim, plan)
+        if dim != DIM:
+            continue
+        lib = []
+        for _ in range(2):
+            tabs = tuple(t.clone() for t in start)
+            a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            a.record()
+            dense_epoch_library(torch, *tabs, cells, eta, cfg.lam, cfg.gb,
+                                cap, dim)
+            b.record()
+            torch.cuda.synchronize()
+            lib.append(a.elapsed_time(b))
+        lib_err = max(float((x - y).abs().max())
+                      for x, y in zip(tabs, out["wavefront"]))
+        log(f"# phase 3: dim {dim}: the diagonal walk composed of cuBLAS "
+            f"batched bf16 products (torch.baddbmm, torch.bmm) and "
+            f"elementwise ops: epoch ms {[round(x, 3) for x in lib]}; its "
+            f"tables differ from the wavefront walk's by {lib_err:.3e} "
+            f"(bf16 sums)")
+
+
+# the phases of a wavefront cell that the clock build of csrc/dense_cell.cu
+# times (its WALK_TICK indices): thread 0, the shared part and the
+# reduction group; thread 256, the theta group
+WALK_CLOCK_PHASES = (
+    "wait", "phi tile", "pred", "S/W wait", "E", "dphi", "cluster barrier",
+    "reduction", "release", "end of cell", "theta: shared part",
+    "theta: dtheta and apply", "theta: cluster barrier", "theta: end of cell")
+
+
+def walk_clocks(torch, td, cells, start, eta, cfg, cap, dim, plan):
+    """A diagnostic: one wavefront epoch from ``start`` on the clock build
+    of ``csrc/dense_cell.cu`` (``-DTMF_WALK_CLOCKS``), logging the clocks
+    per cell and block of each phase. The main build has no clocks."""
+    from tpu_mf_torch.ops import _build
+
+    lib = td.bind_dense_lib(_build.load("dense_cell",
+                                        defines=("TMF_WALK_CLOCKS",)))
+    lib.tmf_dense_walk_clocks.argtypes = [ctypes.c_void_p]
+    sums = (ctypes.c_ulonglong * len(WALK_CLOCK_PHASES))()
+    main = td._dense_lib
+    td._dense_lib = lambda: lib  # this epoch only, then the main build
+    try:
+        lib.tmf_dense_walk_clocks(sums)  # zeroes them
+        tabs = tuple(t.clone() for t in start)
+        td.dense_epoch(*tabs, cells, eta, cfg.lam, cfg.gb, cap, dim,
+                       walk="wavefront")
+        torch.cuda.synchronize()
+        rc = lib.tmf_dense_walk_clocks(sums)
+    finally:
+        td._dense_lib = main
+    if rc != 0:
+        raise RuntimeError(f"dense walk clocks: CUDA error {rc}")
+    n_gu, n_gvp = cells.s.shape[:2]
+    per = [x / (n_gu * n_gvp * plan.cluster) for x in sums]
+    log(f"# phase 3: dim {dim} wavefront walk, clocks per cell and block "
+        f"(clock build): " + ", ".join(
+            f"{k} {v:.0f}" for k, v in zip(WALK_CLOCK_PHASES, per))
+        + f"; thread 0 {sum(per[:10]):.0f}, thread 256 {sum(per[10:]):.0f}")
 
 
 def phase_time_cells(torch, tc, cfg, train, test, params_final, rm):
@@ -1742,7 +1935,7 @@ def main(argv=None) -> int:
         if want(2):
             ent["dense_cell"] = entry(
                 "dense_cell", "tpu_mf/ops/pallas_sgd_dense.py:239", launches,
-                errs["bfloat16"], dense_t)
+                errs["wavefront", "bfloat16"], dense_t)
     if want(4):
         ccfg, cparams, crm, claunches = phase_train_cells(torch, train, test)
         cell_t = phase_time_cells(torch, tc, ccfg, train, test, cparams, crm)

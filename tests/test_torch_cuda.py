@@ -41,33 +41,90 @@ def cuda():
     return torch.device("cuda")
 
 
+# (users, items, tu, tv, k_cells): a 3x5 grid of ragged tiles, a 2x3 grid
+# of full-size 256x256 cells, one row of cells, one column of cells
+DENSE_GRIDS = {"72x128, 3x5": (200, 600, 72, 128, 5),
+               "256x256, 2x3": (512, 768, 256, 256, 3),
+               "72x128, 1x5": (72, 600, 72, 128, 5),
+               "72x128, 3x1": (200, 128, 72, 128, 1)}
+# every walk the route can pick: the diagonal walk takes both working types
+# and every case; the wavefront walk bf16, where plan_dense_walk takes the
+# cell shape, dim and W type (all but dims 130 and 300, and dim 64 on
+# 256x256 cells with bf16 W)
+DENSE_WALKS = [("float32", 1e-4, "diagonal"), ("bfloat16", 2e-3, "diagonal"),
+               ("bfloat16", 2e-3, "wavefront")]
+
+
+def dense_cases():
+    cases = []
+    for mxu, atol, walk in DENSE_WALKS:
+        for w_dtype in ("int8", "working type"):
+            for grid in sorted(DENSE_GRIDS):
+                for dim in (8, 64, 130, 300):
+                    _, _, tu, tv, _ = DENSE_GRIDS[grid]
+                    wd = torch.int8 if w_dtype == "int8" else torch.bfloat16
+                    if walk == "wavefront" and td.plan_dense_walk(
+                            tu, tv, dim, torch.bfloat16, wd) is None:
+                        continue
+                    cases.append(pytest.param(
+                        mxu, atol, walk, w_dtype, grid, dim,
+                        id=f"{mxu}-{walk}-{w_dtype}-{grid}-{dim}"))
+    return cases
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("dim", [40, 130])
-@pytest.mark.parametrize("mxu,atol", [
-    # f32 working type: only the order of the f32 sums differs
-    ("float32", 1e-4),
-    # bf16: both sides round E to bf16 from f32 values that may differ in
-    # the last bit, one bf16 step of E times eta per flipped element
-    ("bfloat16", 2e-3),
-])
-def test_dense_kernel_matches_reference(cuda, mxu, atol, dim):
-    """A 3x5 cell grid with ragged tile edges (tu 72, tv 128), with rows of
-    one (dim 40) and two (dim 130) 128-lane groups."""
-    ds = synthetic_ratings(200, 600, 40000, rank=3, noise=0.3, seed=5)
+@pytest.mark.parametrize("mxu,atol,walk,w_dtype,grid,dim", dense_cases())
+def test_dense_kernel_matches_reference(cuda, mxu, atol, walk, w_dtype, grid,
+                                        dim):
+    """Three epochs back to back on one runner (the walk's counters are
+    numbered across epochs), against the plain version. Tolerances: in f32
+    only the order of the f32 sums differs; in bf16 both sides round E to
+    bf16 from f32 values that may differ in the last bit, one bf16 step of
+    E times eta per flipped element. Dims 8 to 300 are rows of one to three
+    128-lane groups."""
+    nu, nv, tu, tv, k = DENSE_GRIDS[grid]
+    ds = synthetic_ratings(nu, nv, nu * nv // 8, rank=3, noise=0.3, seed=5)
     tabs = np_tables(ds.nu, ds.nv, dim, seed=6, gb=3.0)
-    r = td.DenseEpochRunner(ds, tile_u=72, tile_v=128, k_cells=5, mxu=mxu,
+    r = td.DenseEpochRunner(ds, tile_u=tu, tile_v=tv, k_cells=k, mxu=mxu,
                             device=cuda)
+    cells = r.cells
+    if w_dtype == "working type":  # W as datasets with > 127 duplicates get it
+        cells = cells._replace(w=cells.w.to(r.work_dtype))
     base = r.pad(params_from_numpy(*tabs, device=cuda))
     ref = tuple(t.clone() for t in base)
-    before = td.dense_epoch.launches
-    td.dense_epoch_reference(*ref, r.cells, 0.02, 0.005, 3.0, 10.0, r.dim)
-    r.epoch(base, 0.02, 0.005, 3.0)
+    before, walks = td.dense_epoch.launches, dict(td.dense_epoch.walks)
+    for it in range(3):
+        eta = 0.02 / (1 + it)
+        td.dense_epoch_reference(*ref, cells, eta, 0.005, 3.0, 10.0, r.dim)
+        td.dense_epoch(*base, cells, eta, 0.005, 3.0, 10.0, r.dim, walk=walk)
     torch.cuda.synchronize()
-    assert td.dense_epoch.launches == before + 1
+    assert td.dense_epoch.launches == before + 3
+    assert td.dense_epoch.walks[walk] == walks[walk] + 3
     for a, b in zip(base, ref):
         assert float((a - b).abs().max()) <= atol
     start = r.pad(params_from_numpy(*tabs, device=cuda))
     assert float((base[0] - start[0]).abs().max()) > 1e-3  # it trained
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mxu,dim,walk", [
+    ("bfloat16", 64, "wavefront"), ("bfloat16", 300, "diagonal"),
+    ("float32", 64, "diagonal")])
+def test_dense_epoch_takes_the_routed_walk(cuda, mxu, dim, walk):
+    """Without ``walk``, dense_epoch launches the walk dense_route names:
+    the wavefront walk for bf16 rows whose lanes fit on chip, the diagonal
+    walk for wider rows and the f32 parity type."""
+    ds = synthetic_ratings(200, 600, 15000, rank=3, noise=0.3, seed=7)
+    tabs = np_tables(ds.nu, ds.nv, dim, seed=8, gb=3.0)
+    r = td.DenseEpochRunner(ds, tile_u=72, tile_v=128, k_cells=5, mxu=mxu,
+                            device=cuda)
+    assert td.dense_route(72, 128, dim, r.work_dtype, r.cells.w.dtype) == walk
+    base = r.pad(params_from_numpy(*tabs, device=cuda))
+    walks = dict(td.dense_epoch.walks)
+    r.epoch(base, 0.02, 0.005, 3.0)
+    torch.cuda.synchronize()
+    assert td.dense_epoch.walks[walk] == walks[walk] + 1
+    assert all(torch.isfinite(t).all() for t in base)
 
 
 @pytest.mark.cuda

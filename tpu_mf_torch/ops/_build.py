@@ -23,7 +23,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lock = threading.Lock()
-_libs: dict[str, ctypes.CDLL] = {}
+_libs: dict[str, ctypes.CDLL] = {}  # by name and defines
 # ptxas register / shared-memory report of the builds made by this process
 build_logs: dict[str, str] = {}
 
@@ -39,20 +39,22 @@ def _nvcc() -> str:
     return found
 
 
-def build_all(names) -> list[Path]:
+def build_all(names, defines=()) -> list[Path]:
     """Compile each ``csrc/<name>.cu`` that has no up-to-date library, one
-    nvcc process per source, all started together."""
+    nvcc process per source, all started together; ``defines`` are macros
+    for a diagnostic build (``-D``), kept apart by the hash."""
+    flags = NVCC_FLAGS + tuple(f"-D{d}" for d in defines)
     jobs = []
     for name in names:
         src = CSRC / f"{name}.cu"
-        key = src.read_bytes() + " ".join(NVCC_FLAGS).encode()
+        key = src.read_bytes() + " ".join(flags).encode()
         out = BUILD_DIR / f"{name}-{hashlib.sha256(key).hexdigest()[:12]}.so"
         proc = tmp = None
         if not out.exists():
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
             tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
             proc = subprocess.Popen(
-                [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+                [_nvcc(), *flags, "-o", str(tmp), str(src)],
                 stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
         jobs.append((name, src, out, tmp, proc))
     # wait for every process before raising, so none outlives a failure
@@ -62,19 +64,21 @@ def build_all(names) -> list[Path]:
             continue
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed on {src.name}:\n{err}")
-        build_logs[name] = err
+        build_logs[" ".join((name, *defines))] = err
         os.replace(tmp, out)
     return [out for _, _, out, _, _ in jobs]
 
 
-def build(name: str) -> Path:
+def build(name: str, defines=()) -> Path:
     """Compile ``csrc/<name>.cu`` unless an up-to-date library exists."""
-    return build_all([name])[0]
+    return build_all([name], defines)[0]
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library for ``csrc/<name>.cu``, built if needed."""
+def load(name: str, defines=()) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu`` (built with ``defines``),
+    built if needed."""
+    key = " ".join((name, *defines))
     with _lock:
-        if name not in _libs:
-            _libs[name] = ctypes.CDLL(str(build(name)))
-        return _libs[name]
+        if key not in _libs:
+            _libs[key] = ctypes.CDLL(str(build(name, defines)))
+        return _libs[key]

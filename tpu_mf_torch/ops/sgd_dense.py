@@ -14,9 +14,11 @@ tiles (homogeneous fused rows fold the biases in, ``ops/rows.py``):
 then the geometric decay (1 - eta*lam)^k and the step eta * min(1, cap/k)
 per row. Cells are visited in row-major order: theta_i carries across its
 row of cells and phi_c is written back after every cell. The cells of one
-anti-diagonal touch disjoint tiles, so both the kernel and the plain
-version below walk the diagonals in order and the cells of a diagonal at
-once, which reproduces the row-major result exactly.
+anti-diagonal touch disjoint tiles, so the plain version below and the
+kernel's diagonal walk take the diagonals in order and the cells of a
+diagonal at once; the kernel's wavefront walk takes the user-tile rows,
+each row's cells in order, a row waiting on the row above tile by tile.
+Both keep the two edges of the row-major order, and so its result.
 
 ``dense_epoch`` runs the hand-written CUDA kernel (``csrc/dense_cell.cu``)
 on CUDA tensors and the plain PyTorch version ``dense_epoch_reference`` on
@@ -143,6 +145,31 @@ def dense_eligible(params: MFParams, ds: RatingsCOO) -> bool:
     return dense_bytes <= DENSE_BUDGET and vmem_phi <= 64 * 1024 * 1024
 
 
+class WalkCounters:
+    """The wavefront walk's hand-off state on one device: a ready counter
+    per item tile and the unit ticket counter (int32, read as unsigned).
+
+    Nothing is cleared between epochs. The counters are numbered instead,
+    in units: a launch starts with every ready counter at ``ready_base``
+    times the cluster's blocks and the ticket at ``ticket_base``; each
+    block of unit i adds one to item tile c's counter when it leaves the
+    tile, and unit i waits for it to reach (``ready_base`` + i) times the
+    blocks; every cluster draws tickets until one lies past the last unit.
+    So one epoch adds n_gu units to each ready counter and n_gu +
+    n_clusters to the ticket (``advance``), modulo 2^32 as the kernel's
+    unsigned counters wrap."""
+
+    def __init__(self, n_gvp: int, device: torch.device | str):
+        self.counters = torch.zeros(n_gvp + 1, dtype=torch.int32,
+                                    device=device)
+        self.ticket_base = 0
+        self.ready_base = 0
+
+    def advance(self, n_gu: int, n_clusters: int) -> None:
+        self.ticket_base = (self.ticket_base + n_gu + n_clusters) % 2 ** 32
+        self.ready_base = (self.ready_base + n_gu) % 2 ** 32
+
+
 class DenseCells(NamedTuple):
     """The dense cell matrices of a plan, on one device."""
 
@@ -150,6 +177,7 @@ class DenseCells(NamedTuple):
     w: torch.Tensor   # (n_gu, n_gvp, tu, tv) counts: int8, or the working type
     ku: torch.Tensor  # (n_gu, n_gvp, tu) float32 row sums of w
     kv: torch.Tensor  # (n_gu, n_gvp, tv) float32 column sums of w
+    walk: WalkCounters  # the wavefront walk's hand-off counters
 
 
 def densify(plan: DensePlan, work_dtype: torch.dtype,
@@ -170,7 +198,8 @@ def densify(plan: DensePlan, work_dtype: torch.dtype,
     w = scatter(torch.ones_like(r), torch.int8 if plan.max_w <= 127
                 else work_dtype)
     return DenseCells(s=s, w=w, ku=w.sum(3, dtype=torch.float32),
-                      kv=w.sum(2, dtype=torch.float32))
+                      kv=w.sum(2, dtype=torch.float32),
+                      walk=WalkCounters(plan.n_gvp, device))
 
 
 def dense_epoch_reference(theta: torch.Tensor, phi: torch.Tensor,
@@ -225,26 +254,133 @@ def dense_epoch_reference(theta: torch.Tensor, phi: torch.Tensor,
         torch.backends.cuda.matmul.allow_tf32 = tf32
 
 
+# The wavefront walk (csrc/dense_cell.cu: dense_walk_kernel). A cluster of
+# ceil(tu / 64) blocks takes one cell, block q its user rows [64q, 64q + 64),
+# with the dim + 2 used lanes of both tiles on chip. walk_smem_bytes mirrors
+# the kernel's walk_layout.
+WALK_ROWS = 64        # user rows per block
+WALK_MAX_LC = 96      # lanes on chip: the wgmma widths the kernel takes
+WALK_MAX_TV = 256     # item rows of a cell: the pred accumulators per thread
+WALK_MAX_CLUSTER = 8  # blocks per cluster (the portable cluster size)
+WALK_SMEM = 232_448   # shared memory one block may take on sm_90
+
+
+class WalkPlan(NamedTuple):
+    cluster: int   # blocks per cluster: one per 64 user rows of a cell
+    lc: int        # lanes on chip: dim + 2 rounded up to 16
+    smem: int      # bytes of shared memory per block
+
+
+def walk_slice(tv: int, cluster: int) -> int:
+    """Item rows each block of a cluster reduces: whole 16-row blocks."""
+    return cdiv(cdiv(tv, cluster), 16) * 16
+
+
+def walk_smem_bytes(tv: int, lc: int, w_bytes: int, cluster: int) -> int:
+    """Shared memory of one walk block: a 1 KiB header, the S stage (E
+    overwrites it in place) and the W stage as TMA boxes, the phi tile and
+    two theta tiles (bf16: this cell's and the next), the dphi partial
+    (f32) and the f32 cell-start rows of the block's slice of phi, and
+    1 KiB of slack to align the stages to 1024 bytes."""
+    def a128(x):
+        return cdiv(x, 128) * 128
+
+    r = WALK_ROWS
+    return (1024 + r * tv * 2 + r * tv * w_bytes + tv * lc * 2
+            + 2 * r * lc * 2 + a128(tv * (lc + 4) * 4)
+            + a128(walk_slice(tv, cluster) * lc * 4) + 1024)
+
+
+def plan_dense_walk(tu: int, tv: int, dim: int, work_dtype: torch.dtype,
+                    w_dtype: torch.dtype) -> WalkPlan | None:
+    """The wavefront walk's geometry for cells of tu x tv at ``dim``, or
+    None where the walk does not take the shape: a working type other than
+    bf16, tv other than 128 or 256 (S and W arrive as TMA boxes of 128
+    bytes a row), tu not a multiple of 8 or above 8 blocks of 64 rows, or
+    rows whose dim + 2 lanes (rounded up to 16) exceed ``WALK_MAX_LC`` or
+    one block's shared memory."""
+    if work_dtype != torch.bfloat16 or w_dtype not in (torch.int8,
+                                                       torch.bfloat16):
+        return None
+    if (tv % 128 or tv > WALK_MAX_TV or tu % 8
+            or cdiv(tu, WALK_ROWS) > WALK_MAX_CLUSTER):
+        return None
+    w_bytes = 1 if w_dtype == torch.int8 else 2
+    cluster = cdiv(tu, WALK_ROWS)
+    lc = cdiv(dim + 2, 16) * 16
+    smem = walk_smem_bytes(tv, lc, w_bytes, cluster)
+    if lc > WALK_MAX_LC or smem > WALK_SMEM:
+        return None
+    return WalkPlan(cluster, lc, smem)
+
+
+def dense_route(tu: int, tv: int, dim: int, work_dtype: torch.dtype,
+                w_dtype: torch.dtype) -> str:
+    """The walk a dense epoch takes on the card: "wavefront" where
+    ``plan_dense_walk`` takes the shape, else "diagonal" (the f32 parity
+    type, wider rows, other cell shapes)."""
+    plan = plan_dense_walk(tu, tv, dim, work_dtype, w_dtype)
+    return "diagonal" if plan is None else "wavefront"
+
+
 _S_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _W_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
 
 def _dense_lib() -> ctypes.CDLL:
-    lib = _build.load("dense_cell")
+    return bind_dense_lib(_build.load("dense_cell"))
+
+
+def bind_dense_lib(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """``lib``, a build of ``csrc/dense_cell.cu``, with its entry points'
+    argument types set."""
     fn = lib.tmf_dense_epoch
     fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 8
                    + [ctypes.c_float] * 4 + [ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
+    fn = lib.tmf_dense_walk_epoch
+    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 11
+                   + [ctypes.c_uint] * 2 + [ctypes.c_float] * 4
+                   + [ctypes.c_int, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    fn = lib.tmf_dense_walk_clusters
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
     return lib
+
+
+_walk_clusters: dict = {}
+
+
+def walk_clusters(plan: WalkPlan, w_dtype: torch.dtype,
+                  device: torch.device) -> int:
+    """The most clusters of ``plan`` the card keeps resident at once
+    (``cudaOccupancyMaxActiveClusters``), cached per device and plan."""
+    device = torch.device(device)
+    idx = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    key = (idx, plan.cluster, plan.smem, w_dtype)
+    if key not in _walk_clusters:
+        out = ctypes.c_int(0)
+        with torch.cuda.device(idx):
+            rc = _dense_lib().tmf_dense_walk_clusters(
+                _W_CODE[w_dtype], plan.cluster, plan.smem, ctypes.byref(out))
+        if rc != 0 or out.value < 1:
+            raise RuntimeError(f"dense walk: no cluster of {plan.cluster} "
+                               f"blocks with {plan.smem} bytes fits "
+                               f"(CUDA error {rc})")
+        _walk_clusters[key] = out.value
+    return _walk_clusters[key]
 
 
 def dense_epoch(theta: torch.Tensor, phi: torch.Tensor, cells: DenseCells,
                 eta: float, lam: float, gb: float, cap: float, dim: int,
-                saturate: bool = True) -> None:
+                saturate: bool = True, walk: str | None = None) -> None:
     """One dense-cell epoch, in place on the fused (theta_ext, phi_ext).
 
     CPU tensors take the plain version; CUDA tensors launch the
-    ``csrc/dense_cell.cu`` kernel or raise."""
+    ``csrc/dense_cell.cu`` kernel or raise. ``walk`` forces "wavefront" or
+    "diagonal" (default: ``dense_route``)."""
     if theta.device.type == "cpu":
         dense_epoch_reference(theta, phi, cells, eta, lam, gb, cap, dim,
                               saturate)
@@ -272,6 +408,56 @@ def dense_epoch(theta: torch.Tensor, phi: torch.Tensor, cells: DenseCells,
     if work not in _S_CODE or cells.w.dtype not in (torch.int8, work):
         raise ValueError(f"dense_epoch: unsupported s/w dtypes {work}, "
                          f"{cells.w.dtype}")
+    route = walk or dense_route(tu, tv, dim, work, cells.w.dtype)
+    if route == "wavefront":
+        _walk_epoch(theta, phi, cells, eta, lam, gb, cap, dim, saturate)
+    elif route == "diagonal":
+        _diagonal_epoch(theta, phi, cells, eta, lam, gb, cap, dim, saturate)
+    else:
+        raise ValueError(f"dense_epoch: no walk {walk!r}")
+    dense_epoch.launches += 1
+    dense_epoch.walks[route] += 1
+
+
+def _walk_epoch(theta, phi, cells, eta, lam, gb, cap, dim, saturate):
+    n_gu, n_gvp, tu, tv = cells.s.shape
+    plan = plan_dense_walk(tu, tv, dim, cells.s.dtype, cells.w.dtype)
+    if plan is None:
+        raise ValueError(f"dense_epoch: the wavefront walk does not take "
+                         f"cells of {tu}x{tv} at dim {dim} in "
+                         f"{cells.s.dtype} / {cells.w.dtype}")
+    sync = cells.walk
+    if (sync.counters.device != theta.device
+            or sync.counters.shape != (n_gvp + 1,)):
+        raise ValueError("dense_epoch: the cells' walk counters do not fit "
+                         "their grid and device")
+    if any(t.data_ptr() % 16 for t in (theta, phi, cells.s, cells.w)):
+        raise ValueError("dense_epoch: the tables and cells must be 16-byte "
+                         "aligned")
+    n_clusters = min(walk_clusters(plan, cells.w.dtype, theta.device), n_gu)
+    # units hand phi on as bf16 rows (each written before it is read)
+    shadow = torch.empty(n_gvp * tv, plan.lc, dtype=torch.bfloat16,
+                         device=theta.device)
+    lib = _dense_lib()
+    with torch.cuda.device(theta.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.tmf_dense_walk_epoch(
+            theta.data_ptr(), phi.data_ptr(), cells.s.data_ptr(),
+            cells.w.data_ptr(), cells.ku.data_ptr(), cells.kv.data_ptr(),
+            sync.counters.data_ptr(), shadow.data_ptr(),
+            n_gu, n_gvp, tu, tv, theta.shape[1], dim, plan.lc,
+            _W_CODE[cells.w.dtype], plan.cluster, n_clusters,
+            plan.smem, sync.ticket_base, sync.ready_base, eta, lam, gb, cap,
+            int(saturate), stream)
+    if rc != 0:
+        raise RuntimeError(f"dense_cell walk launch failed: CUDA error {rc}")
+    sync.advance(n_gu, n_clusters)
+
+
+def _diagonal_epoch(theta, phi, cells, eta, lam, gb, cap, dim, saturate):
+    n_gu, n_gvp, tu, tv = cells.s.shape
+    lanes = theta.shape[1]
+    work = cells.s.dtype
     nc = min(n_gu, n_gvp)
     e_buf = torch.empty(nc, tu, tv, dtype=work, device=theta.device)
     th_snap = torch.empty(nc, tu, lanes, dtype=work, device=theta.device)
@@ -293,10 +479,10 @@ def dense_epoch(theta: torch.Tensor, phi: torch.Tensor, cells: DenseCells,
             eta, lam, gb, cap, int(saturate), stream)
     if rc != 0:
         raise RuntimeError(f"dense_cell kernel launch failed: CUDA error {rc}")
-    dense_epoch.launches += 1
 
 
 dense_epoch.launches = 0  # kernel launches (CUDA calls), not CPU runs
+dense_epoch.walks = {"wavefront": 0, "diagonal": 0}  # the launches by walk
 
 
 class DenseEpochRunner:
