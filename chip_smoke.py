@@ -55,36 +55,46 @@ results: 3 and 5; 7-10; 12 and 14; 16 and 18:
      each slot phase at its first epoch), plain version, kernel, kernel,
      plain version from the same initial tables, timed with CUDA events
      and held to each other as in phase 9;
- 11. the two SGLD kernels against their plain versions on the card, both
-     working types, at temp 0 and temp 1 (the same normals or ring on both
-     sides), stamps equal as integers: one gen-1 round at dim 128 on 6x6
-     tiles of 512x512 at ML-10M density, and slot rounds at dim 8 on 6x6
-     tiles of 1024x1024 (plain plans at noise_every 8, striped at 1 and 8);
+ 11. the two SGLD kernels, each on both walks (the tile walk and the grid
+     walk), against their plain versions on the card, both working types,
+     at temp 0 and temp 1 (the same normals or ring on both sides), stamps
+     equal as integers: one gen-1 round at dim 128 on 6x6 tiles of 512x512
+     at ML-10M density, and slot rounds at dim 8 on 6x6 tiles of
+     1024x1024 (plain plans at noise_every 8, striped at 1 and 8); each
+     plan's units, critical path and route;
  12. the DP-SGLD main path: ``tpu_mf_torch.train.train_dpmf`` on ``cuda``,
      3 rounds at dim 128 (the reference default), temp 1,
      eta = SCAL_DP / ntrain, hyperb 1000: the gen-1 SGLD runner must carry
-     every round, RMSE and tRMSE must be finite, tRMSE below the initial
-     tables'; then one round from the initial state, plain version,
-     kernel, kernel, plain version at temp 1 (held to max_abs_err) and
-     kernel and plain version at temp 0 (held as in phase 9), timed with
-     CUDA events;
+     every round, each on the walk the route picks, RMSE and tRMSE must be
+     finite, tRMSE below the initial tables'; then the plans' units,
+     critical paths and routes, and one round from the initial state:
+     the plain version, then the grid and the tile walk in turns (grid,
+     tile, tile, grid) at temp 1 (each held to max_abs_err), both walks and
+     the plain version at temp 0 (held as in phase 9), timed with CUDA
+     events; the tile walk's clocks per window step by phase (a
+     ``-DTMF_TILE_CLOCKS`` build);
  13. the same at dim 8: the striped slot SGLD runner every round;
  14. phase 12's state written as the dpmf checkpoint {result}_3, read back
      with ``load_dpmf_binary`` and checked;
- 15. both AdaptReg plan families against the plain version on the card, one
-     whole segmented epoch each (segments and hypergradient steps, the same
-     validation draws on both sides), both working types, losses 0 and 1,
-     on 6x6 tiles at ML-10M density: gen-1 plans at dim 128, tiles 512,
-     batch 4096 (8/8 groups; also a negative decay base), striped slot
-     plans at dim 8, tile 1024 (8/8 and windows of 2+ columns);
+ 15. both AdaptReg plan families, on both walks, against the plain version
+     on the card, one whole segmented epoch each (segments and
+     hypergradient steps, the same validation draws on both sides), both
+     working types, losses 0 and 1, on 6x6 tiles at ML-10M density: gen-1
+     plans at dim 128, tiles 512, batch 4096 (8/8 groups; also a negative
+     decay base), striped slot plans at dim 8, tile 1024 (8/8 and windows
+     of 2+ columns); each plan's units, critical path and route;
  16. the AdaptReg main path: ``tpu_mf_torch.train.train_admf`` on ``cuda``,
      3 epochs at dim 128 (the CLI default) on the stand-in's train split
      less a 5% validation split (``bench.py:261-270``: lam 0.05, eta 0.002,
      eta_reg 0.01): the gen-1 AdaptReg runner must carry every epoch, 8
-     launches each, tRMSE must be finite and fall, the lambdas stay >= 0
-     and move; eta times the plans' per-column duplicate maxima; then one
-     epoch from the initial state, plain version, kernel, kernel, plain
-     version, with the same validation draws, timed with CUDA events;
+     launches each on the walk the route picks, tRMSE must be finite and
+     fall, the lambdas stay >= 0 and move; eta times the plans' per-column
+     duplicate maxima; the plans' units, critical paths and routes; then
+     one epoch from the initial state, the plain version, then the grid
+     and the tile walk in turns (grid, tile, tile, grid), with the same
+     validation draws, each held to the plain version; then the segments
+     alone, the walks in turns and the plain version once, timed with CUDA
+     events, and the tile walk's clocks per window step by phase;
  17. the same at dim 8 with the striped slot AdaptReg runner, 4 launches an
      epoch, at eta = min(0.002, 0.18 / the slot gate's duplicate counts);
  18. phase 16's state written as the {result}_3 checkpoint (the reference
@@ -109,7 +119,9 @@ results: 3 and 5; 7-10; 12 and 14; 16 and 18:
      timed and held to the plain version.
 
 Each phase group prints its seconds. The last lines are the kernels' JSON
-summary (time, launches on the main path, bound), the card's name and
+summary (time, launches on the main path, bound; for the SGLD and
+AdaptReg kernels the walk the main path took, whose time and error the
+line gives), the card's name and
 power limit, and {"ok": true, "device": {...}}. Imports nothing of JAX or
 of tpu_mf. Plans are built anew (``TPU_MF_PLAN_CACHE=0``): nothing is
 written outside the checkout.
@@ -189,6 +201,9 @@ LAM_AD, ETA_AD, ETA_REG_AD = 0.05, 0.002, 0.01
 LAM_REL = 1e-2
 KERNELS = ("dense_cell", "cell_sgd", "sgld_cells", "adreg_cells",
            "free_cells")
+# the two walks of csrc/sgld_cells.cu and csrc/adreg_cells.cu
+# (tpu_mf_torch/ops/tile_walk.py: WALKS)
+WALKS = ("tile", "grid")
 # the card's published peaks (H100 SXM data sheet, at 700 W): memory bytes/s,
 # bf16 tensor-core and float32 CUDA-core operations/s
 HBM_BYTES_S, PEAK_BF16, PEAK_F32 = 3.35e12, 989e12, 67e12
@@ -1056,6 +1071,73 @@ def dp_state(torch, ds, dim, gb, seed=0):
     return init_dpmf(ds, dim, gb, torch.Generator().manual_seed(seed), DEVICE)
 
 
+def plan_walks(runner):
+    """The ``DeviceWalk`` of each plan of an SGLD or AdaptReg runner."""
+    runner.materialize()
+    if hasattr(runner, "walks"):  # the AdaptReg runners
+        return runner.walks
+    return [p.walk for p in runner._dev]
+
+
+def log_walk(phase, name, runner):
+    """Each plan's tile walk: launch ranges, units, windows, the critical
+    path in windows (summed over the ranges) and the route."""
+    for idx, w in enumerate(plan_walks(runner)):
+        units = [x.n_units for x in w.walks]
+        crit = [x.crit for x in w.walks]
+        wins = sum(x.n_windows for x in w.walks)
+        log(f"# phase {phase}: {name} plan {idx}: {len(units)} launch "
+            f"range(s), {sum(units)} units {units}, {wins} windows of "
+            f"{w.walks[0].window} column(s) with a real slot, critical path "
+            f"{sum(crit)} windows {crit} ({wins / max(1, sum(crit)):.1f}x "
+            f"shorter), clusters of {w.cluster} blocks, route {w.route}")
+
+
+# the phases of a window step that the clock build of the tile walk times
+# (tile_walk.cuh: TW_TICK indices 0-7)
+TILE_CLOCK_PHASES = ("ticket", "wait", "noise", "scatter",
+                     "barrier after scatter", "apply", "barrier after apply",
+                     "release")
+
+
+def tile_clocks(torch, mod, name, phase, label, runner, run, fresh):
+    """A diagnostic: ``run(fresh())`` (the tile walk's launches of one epoch
+    or round) on the clock build of ``csrc/{name}_cells.cu``
+    (``-DTMF_TILE_CLOCKS``), logging clocks per window step and block of
+    each phase. The main build has no clocks."""
+    from tpu_mf_torch.ops import _build
+
+    lib = getattr(mod, f"bind_{name}_lib")(_build.load(
+        f"{name}_cells", defines=("TMF_TILE_CLOCKS",)))
+    fn = getattr(lib, f"tmf_{name}_walk_clocks")
+    fn.argtypes = [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    sums = (ctypes.c_ulonglong * (len(TILE_CLOCK_PHASES) + 1))()
+    attr = f"_{name}_lib"
+    main = getattr(mod, attr)
+    setattr(mod, attr, lambda: lib)  # these launches only
+    try:
+        fn(sums)  # zeroes them
+        tabs = fresh()
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        run(tabs)
+        b.record()
+        torch.cuda.synchronize()
+        rc = fn(sums)
+    finally:
+        setattr(mod, attr, main)
+    if rc != 0:
+        raise RuntimeError(f"{name} walk clocks: CUDA error {rc}")
+    steps = sums[len(TILE_CLOCK_PHASES)]
+    per = [x / max(1, steps) for x in sums[:len(TILE_CLOCK_PHASES)]]
+    log(f"# phase {phase}: {label} tile walk, clock build: "
+        f"{a.elapsed_time(b):.3f} ms, {steps} window steps summed over "
+        f"blocks; clocks per window step and block: " + ", ".join(
+            f"{k} {v:.0f}" for k, v in zip(TILE_CLOCK_PHASES, per))
+        + f"; total {sum(per):.0f}")
+
+
 def plain_round(tg, tss, runner, tables, clock0, hyper, noise_seed,
                 epoch_idx=0, ring=None):
     """What ``runner.epoch`` launches, through the plain version."""
@@ -1081,9 +1163,9 @@ def sgld_err(torch, got, want):
 
 
 def compare_sgld(torch, tg, tss, make, ds, dim, name, what):
-    """An SGLD runner's kernel vs its plain version, one round per working
-    type at temp 0 and temp 1 from init_dpmf's state; returns the largest
-    error per working type."""
+    """An SGLD runner's kernel on each walk vs its plain version, one round
+    per working type at temp 0 and temp 1 from init_dpmf's state; returns
+    the largest error per walk and working type."""
     gb = ds.mean_rating()
     errs = {}
     for mxu in ("float32", "bfloat16"):
@@ -1092,19 +1174,23 @@ def compare_sgld(torch, tg, tss, make, ds, dim, name, what):
             state = dp_state(torch, ds, dim, gb)
             eta = 0.05 / len(ds)
             hyper = (eta, temp, 1.0, eta * len(ds), gb)
-            got = r.pad(state)
-            want = tuple(t.clone() for t in got)
+            want = r.pad(state)
             plain_round(tg, tss, r, want, 0, hyper, 11)
-            r.epoch(got, 0, hyper, noise_seed=11)
-            torch.cuda.synchronize()
-            err, stamps = sgld_err(torch, got, want)
-            errs[mxu] = max(errs.get(mxu, 0.0), err)
-            log(f"# phase 11: {name} vs plain, {mxu}, temp {temp:g}, {what}, "
-                f"{r.plan.u.shape[0]} batches, dim {dim}, {len(ds)} ratings: "
-                f"max_abs_err {err:.3e} (atol {ATOL_SGLD[mxu]:g}), stamps "
-                f"{'equal' if stamps else 'DIFFER'}")
-            if not (err <= ATOL_SGLD[mxu] and stamps):
-                raise AssertionError(f"{name} disagrees ({mxu}, temp {temp})")
+            for walk in WALKS:
+                got = r.pad(state)
+                r.epoch(got, 0, hyper, noise_seed=11, walk=walk)
+                torch.cuda.synchronize()
+                err, stamps = sgld_err(torch, got, want)
+                errs[walk, mxu] = max(errs.get((walk, mxu), 0.0), err)
+                log(f"# phase 11: {name} {walk} walk vs plain, {mxu}, temp "
+                    f"{temp:g}, {what}, {r.plan.u.shape[0]} batches, dim "
+                    f"{dim}, {len(ds)} ratings: max_abs_err {err:.3e} (atol "
+                    f"{ATOL_SGLD[mxu]:g}), stamps "
+                    f"{'equal' if stamps else 'DIFFER'}")
+                if not (err <= ATOL_SGLD[mxu] and stamps):
+                    raise AssertionError(f"{name} {walk} walk disagrees "
+                                         f"({mxu}, temp {temp})")
+    log_walk(11, name, r)
     return errs
 
 
@@ -1155,6 +1241,8 @@ def run_dpmf(torch, train, test, phase, dim):
 
     for c in list(counts.values()) + list(wrappers):
         c.launches = 0
+    for c in wrappers:
+        c.walks = dict.fromkeys(WALKS, 0)
     t = time.perf_counter()
     state = train_dpmf(cfg, train, test, log=record, device=DEVICE)
     torch.cuda.synchronize()
@@ -1165,9 +1253,11 @@ def run_dpmf(torch, train, test, phase, dim):
     if [w.launches for w in wrappers] != [sum(per_round["sgld"]),
                                            sum(per_round["slot_sgld"])]:
         raise AssertionError("an SGLD launch outside the runners")
+    walks = {w: sum(c.walks[w] for c in wrappers) for w in WALKS}
     log(f"# phase {phase}: train_dpmf(dim={dim}) on cuda, {ROUNDS} rounds in "
         f"{wall:.1f} s (set-up included); launches per round "
-        + ", ".join(f"{k} {v}" for k, v in per_round.items()))
+        + ", ".join(f"{k} {v}" for k, v in per_round.items())
+        + f"; SGLD launches by walk {walks}")
     rows = [x.split("\t") for x in lines if x.startswith("round #")]
     rmse_tr = [float(x[1].split("=")[1]) for x in rows]
     rm = [float(x[2].split("=")[1]) for x in rows]
@@ -1178,15 +1268,17 @@ def run_dpmf(torch, train, test, phase, dim):
             and max(rm) < rm_init):
         raise AssertionError(f"RMSE {rmse_tr} / tRMSE {rm} not finite or "
                              f"not below the initial {rm_init}")
-    return cfg, state, rm, per_round
+    return cfg, state, rm, per_round, walks
 
 
 def time_dpmf_round(torch, tg, tss, cfg, train, test, phase, name):
     """One full round from the initial state through the main path's
-    runner: plain version, kernel, kernel, plain version at temp 1 (held
-    to max_abs_err, stamps equal), then kernel and plain version at temp 0
-    (held as in phase 9), timed with CUDA events; returns the median round
-    ms of the kernel and of the plain version at temp 1, and the bound."""
+    runner: plain version, then the grid and the tile walk in turns (grid,
+    tile, tile, grid) at temp 1 (each held to max_abs_err, stamps equal),
+    then both walks and the plain version at temp 0 (held as in phase 9),
+    timed with CUDA events; the tile walk's clocks by phase (a clock
+    build). Returns (the median round ms of the routed walk and of the
+    plain version at temp 1, the bound), and the route."""
     import dataclasses
 
     from tpu_mf_torch.models.dpmf import dp_bound
@@ -1203,21 +1295,22 @@ def time_dpmf_round(torch, tg, tss, cfg, train, test, phase, name):
         f"{time.perf_counter() - t:.1f} s: {runner.plan.u.shape[0]} batches"
         + (f", sub {runner.sub}" if slot else f" of {runner.batch}")
         + f", tiles {runner.tile_u}x{runner.tile_v}")
+    log_walk(phase, name, runner)
     n = len(train)
     bnd = dp_bound(cfg.epsilon, cfg.tau, train.nv)
     eta = cfg.eta_at_cutoff(1)
     seed = cfg.seed * 1_000_003 + runner.seed_stride
-    times, outs = {"kernel": [], "plain": []}, {}
-    for temp, order in ((1.0, ("plain", "kernel", "kernel", "plain")),
-                        (0.0, ("kernel", "plain"))):
+    times, outs = {"plain": [], **{w: [] for w in WALKS}}, {}
+    for temp, order in ((1.0, ("plain", "grid", "tile", "tile", "grid")),
+                        (0.0, ("tile", "grid", "plain"))):
         hyper = (eta, temp, bnd, eta * n * bnd * float(init.lambda_r),
                  float(init.params.gb))
         for which in order:
             tabs = runner.pad(init)
             a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
             a.record()
-            if which == "kernel":
-                runner.epoch(tabs, 0, hyper, noise_seed=seed)
+            if which in WALKS:
+                runner.epoch(tabs, 0, hyper, noise_seed=seed, walk=which)
             else:
                 plain_round(tg, tss, runner, tabs, 0, hyper, seed)
             b.record()
@@ -1229,38 +1322,54 @@ def time_dpmf_round(torch, tg, tss, cfg, train, test, phase, name):
         log(f"# phase {phase}: {name} {what} at temp 1: round ms "
             f"{[round(x, 3) for x in ts]}, rating updates/s "
             f"{[round(n / (x / 1e3)) for x in ts]}")
-    err, stamps = sgld_err(torch, outs[1.0, "kernel"], outs[1.0, "plain"])
-    log(f"# phase {phase}: {name} round 1 at temp 1, kernel vs plain: "
-        f"max_abs_err {err:.3e} (atol {ATOL_SGLD_FULL:g}), stamps "
-        f"{'equal' if stamps else 'DIFFER'}")
-    if not (err <= ATOL_SGLD_FULL and stamps):
-        raise AssertionError(f"{name}: kernel and plain disagree at temp 1")
 
     def params(tabs):
         return runner.unpack(init, tabs).params
 
-    got, want = params(outs[0.0, "kernel"]), params(outs[0.0, "plain"])
-    hold(f"{name} round 1 at temp 0, kernel vs plain", got, want,
-         init.params, ATOL_SGLD_FULL, phase)
-    rm_k, rm_p = rmse(got, test), rmse(want, test)
-    log(f"# phase {phase}: {name} tRMSE after round 1 at temp 0: kernel "
-        f"{rm_k:.6f} plain {rm_p:.6f}")
-    if not abs(rm_k - rm_p) <= 1e-3:
-        raise AssertionError(f"{name}: tRMSE of kernel and plain disagree")
+    for walk in WALKS:
+        err, stamps = sgld_err(torch, outs[1.0, walk], outs[1.0, "plain"])
+        log(f"# phase {phase}: {name} round 1 at temp 1, {walk} walk vs "
+            f"plain: max_abs_err {err:.3e} (atol {ATOL_SGLD_FULL:g}), stamps "
+            f"{'equal' if stamps else 'DIFFER'}")
+        if not (err <= ATOL_SGLD_FULL and stamps):
+            raise AssertionError(f"{name}: the {walk} walk and plain "
+                                 "disagree at temp 1")
+        got, want = params(outs[0.0, walk]), params(outs[0.0, "plain"])
+        hold(f"{name} round 1 at temp 0, {walk} walk vs plain", got, want,
+             init.params, ATOL_SGLD_FULL, phase)
+        rm_k, rm_p = rmse(got, test), rmse(want, test)
+        log(f"# phase {phase}: {name} tRMSE after round 1 at temp 0: {walk} "
+            f"walk {rm_k:.6f} plain {rm_p:.6f}")
+        if not abs(rm_k - rm_p) <= 1e-3:
+            raise AssertionError(f"{name}: tRMSE of the {walk} walk and "
+                                 "plain disagree")
+    route = runner.route()
+    hyper = (eta, 1.0, bnd, eta * n * bnd * float(init.lambda_r),
+             float(init.params.gb))
+    tile_clocks(torch, tg, "sgld", phase, name, runner,
+                lambda tabs: runner.epoch(tabs, 0, hyper, noise_seed=seed,
+                                          walk="tile"),
+                lambda: runner.pad(init))
     plan = runner._dev[0]
-    return (median(times["kernel"]), median(times["plain"]),
-            sgld_bound(runner, plan, n, cfg.dim, slot))
+    return (median(times[route]), median(times["plain"]),
+            sgld_bound(runner, plan, n, cfg.dim, slot)), route
 
 
 def phase_dpmf(torch, tg, tss, train, test, phase, dim, family):
-    """Phases 12 and 13: the main path, then its round timed."""
-    cfg, state, _, per_round = run_dpmf(torch, train, test, phase, dim)
+    """Phases 12 and 13: the main path, then its round timed; every round
+    of the main path must take the routed walk."""
+    cfg, state, _, per_round, walks = run_dpmf(torch, train, test, phase,
+                                               dim)
     launches = only(per_round, family, range(1, ROUNDS + 1))
     for k in per_round:
         if k != family:
             only(per_round, k, ())
-    timed = time_dpmf_round(torch, tg, tss, cfg, train, test, phase, family)
-    return cfg, state, launches, timed
+    timed, route = time_dpmf_round(torch, tg, tss, cfg, train, test, phase,
+                                   family)
+    if walks[route] != launches:
+        raise AssertionError(f"{family}: {walks} launches by walk, not all "
+                             f"{launches} on the routed {route} walk")
+    return cfg, state, launches, timed, route
 
 
 def phase_checkpoint_dpmf(torch, cfg, state):
@@ -1307,16 +1416,18 @@ def admf_state(torch, ds, dim, gb, lam, tabs=None, seed=0):
 def adreg_epochs(torch, runner, state, eta, eta_reg, key, order,
                  samples=None, timed=None):
     """One AdaptReg epoch of ``runner`` from ``state`` per entry of
-    ``order`` ("kernel" or "plain"), the same validation draws on every
-    turn; returns {which: (fused tables, lambdas)} of each one's first turn
-    and appends each turn's CUDA-event ms to ``timed[which]``."""
+    ``order`` (a walk, "tile" or "grid", or "plain"), the same validation
+    draws on every turn; returns {which: (fused tables, lambdas)} of each
+    one's first turn and appends each turn's CUDA-event ms to
+    ``timed[which]``."""
     out = {}
     for which in order:
         tabs = runner.pad(state)
         a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
         a.record()
         runner.epoch(tabs, eta, eta_reg, key, samples=samples,
-                     reference=which == "plain")
+                     reference=which == "plain",
+                     walk=which if which in WALKS else None)
         b.record()
         torch.cuda.synchronize()
         if timed is not None:
@@ -1347,10 +1458,10 @@ def binary(ds):
 
 
 def compare_adreg(torch, make, ds, va, tabs, dim, name, what, cases):
-    """An AdaptReg runner's kernel vs the plain version, one whole epoch
-    (eta_reg 0.5, so the lambdas move) per working type, loss and
-    (eta, lam) of ``cases(runner)``; returns the largest table error per
-    working type."""
+    """An AdaptReg runner's kernel on each walk vs the plain version, one
+    whole epoch (eta_reg 0.5, so the lambdas move) per working type, loss
+    and (eta, lam) of ``cases(runner)``; returns the largest table error
+    per walk and working type."""
     errs = {}
     for mxu in ("float32", "bfloat16"):
         for loss in (0, 1):
@@ -1364,20 +1475,23 @@ def compare_adreg(torch, make, ds, va, tabs, dim, name, what, cases):
                     state = admf_state(torch, tr, dim, gb, lam, tabs)
                     lam0 = torch.full((4,), lam, device=DEVICE)
                     out = adreg_epochs(torch, r, state, eta, 0.5, 1,
-                                       ("plain", "kernel"))
-                err = max(float((a - b).abs().max()) for a, b in
-                          zip(out["kernel"][0], out["plain"][0]))
-                errs[mxu] = max(errs.get(mxu, 0.0), err)
-                desc = (f"{name} vs plain, {mxu}, loss {loss}, groups "
-                        f"{tg}/{pg} (eta {eta:.3g}, eta*lam {eta * lam:.3g})"
-                        f", {what}, {r.plan.u.shape[0]} batches in "
-                        f"{r.segments} segments, dim {dim}, {len(ds)} "
-                        "ratings")
-                log(f"# phase 15: {desc}: max_abs_err {err:.3e} (atol "
-                    f"{ATOL_CELL[mxu]:g})")
-                if not err <= ATOL_CELL[mxu]:
-                    raise AssertionError(f"{name} disagrees ({mxu})")
-                hold_lams(desc, out["kernel"][1], out["plain"][1], lam0, 15)
+                                       ("plain",) + WALKS)
+                for walk in WALKS:
+                    err = max(float((a - b).abs().max()) for a, b in
+                              zip(out[walk][0], out["plain"][0]))
+                    errs[walk, mxu] = max(errs.get((walk, mxu), 0.0), err)
+                    desc = (f"{name} {walk} walk vs plain, {mxu}, loss "
+                            f"{loss}, groups {tg}/{pg} (eta {eta:.3g}, "
+                            f"eta*lam {eta * lam:.3g}), {what}, "
+                            f"{r.plan.u.shape[0]} batches in {r.segments} "
+                            f"segments, dim {dim}, {len(ds)} ratings")
+                    log(f"# phase 15: {desc}: max_abs_err {err:.3e} (atol "
+                        f"{ATOL_CELL[mxu]:g})")
+                    if not err <= ATOL_CELL[mxu]:
+                        raise AssertionError(f"{name} {walk} walk disagrees "
+                                             f"({mxu})")
+                    hold_lams(desc, out[walk][1], out["plain"][1], lam0, 15)
+    log_walk(15, name, r)
     return errs
 
 
@@ -1446,6 +1560,7 @@ def run_admf(torch, train, valid, test, phase, dim, eta):
 
     for c in list(counts.values()) + list(wrappers):
         c.launches = 0
+    tac.adreg_segment.walks = dict.fromkeys(WALKS, 0)
     t = time.perf_counter()
     state = train_admf(cfg, train, valid, test, log=record, device=DEVICE)
     torch.cuda.synchronize()
@@ -1456,9 +1571,11 @@ def run_admf(torch, train, valid, test, phase, dim, eta):
     if tac.adreg_segment.launches != sum(per_epoch["adreg"]) + sum(
             per_epoch["slot_adreg"]):
         raise AssertionError("an AdaptReg launch outside the runners")
+    walks = dict(tac.adreg_segment.walks)
     log(f"# phase {phase}: train_admf(dim={dim}, eta={eta:g}) on cuda, "
         f"{AD_EPOCHS} epochs in {wall:.1f} s (set-up included); launches per "
-        f"epoch " + ", ".join(f"{k} {v}" for k, v in per_epoch.items()))
+        f"epoch " + ", ".join(f"{k} {v}" for k, v in per_epoch.items())
+        + f"; AdaptReg launches by walk {walks}")
     rm = [float(x.split("tRMSE=")[1]) for x in lines if "tRMSE=" in x]
     lams = [float(x) for x in state[5:]]
     log(f"# phase {phase}: lambdas lam_u, lam_v, lam_bu, lam_bv {lams} "
@@ -1471,47 +1588,66 @@ def run_admf(torch, train, valid, test, phase, dim, eta):
     if not (min(lams) >= 0 and any(x != float(torch.tensor(LAM_AD))
                                    for x in lams)):
         raise AssertionError(f"lambdas negative or unmoved: {lams}")
-    return cfg, state, lines, per_epoch
+    return cfg, state, lines, per_epoch, walks
 
 
 def time_segments(torch, runner, init, eta, n, phase, name):
-    """One epoch's segments alone from ``init``, kernel, plain version,
-    kernel, each launch timed with CUDA events: the lambdas stay at
-    ``init``'s and the hypergradient steps between segments are left out,
-    as the bound leaves them out; returns the median summed ms of the
-    kernel and of the plain version, and the bound."""
+    """One epoch's segments alone from ``init``, the grid and the tile walk
+    in turns (grid, tile, tile, grid), then the plain version, each launch
+    timed with CUDA events: the lambdas stay at ``init``'s and the
+    hypergradient steps between segments are left out, as the bound leaves
+    them out; then the tile walk's clocks by phase (a clock build). Returns
+    the median summed ms of the routed walk and of the plain version, and
+    the bound."""
     from tpu_mf_torch.ops import adreg_cells as tac
 
     plan = runner.materialize()._dev[0]
     tg, pg = runner.pick_theta_groups(eta), runner.pick_phi_groups(eta)
     seg = runner.seg_len(0)
-    times = {"kernel": [], "plain": []}
-    for which in ("kernel", "plain", "kernel"):
+    times = {w: [] for w in WALKS + ("plain",)}
+
+    def segments(theta, phi, walk, ev=None):
+        for s in range(runner.segments):
+            if ev:
+                ev[s][0].record()
+            if walk == "plain":
+                tac.adreg_segment_reference(
+                    theta, phi, plan, s * seg, (s + 1) * seg, eta,
+                    runner.lams, runner.gb, runner.dim, tg, pg,
+                    runner.work_dtype, runner.loss)
+            else:
+                tac.adreg_segment(
+                    theta, phi, plan, s * seg, (s + 1) * seg, eta,
+                    runner.lams, runner.gb, runner.dim, tg, pg,
+                    runner.work_dtype, runner.loss,
+                    runner.walks[0] if walk == "tile" else None)
+            if ev:
+                ev[s][1].record()
+
+    for which in ("grid", "tile", "tile", "grid", "plain"):
         theta, phi = runner.pad(init)
-        fn = (tac.adreg_segment_reference if which == "plain"
-              else tac.adreg_segment)
         ev = [[torch.cuda.Event(enable_timing=True) for _ in range(2)]
               for _ in range(runner.segments)]
-        for s, (a, b) in enumerate(ev):
-            a.record()
-            fn(theta, phi, plan, s * seg, (s + 1) * seg, eta, runner.lams,
-               runner.gb, runner.dim, tg, pg, runner.work_dtype, runner.loss)
-            b.record()
+        segments(theta, phi, which, ev)
         torch.cuda.synchronize()
         times[which].append(sum(a.elapsed_time(b) for a, b in ev))
     for what, ts in times.items():
         log(f"# phase {phase}: {name} {what}: the {runner.segments} segments "
             f"alone, ms {[round(x, 3) for x in ts]}, rating updates/s "
             f"{[round(n / (x / 1e3)) for x in ts]}")
-    return (median(times["kernel"]), median(times["plain"]),
+    tile_clocks(torch, tac, "adreg", phase, name, runner,
+                lambda tabs: segments(*tabs, "tile"),
+                lambda: runner.pad(init))
+    return (median(times[runner.route()]), median(times["plain"]),
             adreg_bound(runner, plan, n, runner.dim, eta))
 
 
 def time_admf_epoch(torch, cfg, runner, train, test, phase, name):
     """One full epoch of the main path's runner from the initial state,
-    plain version, kernel, kernel, plain version, with the same validation
-    draws (epoch 1's), timed with CUDA events and held to each other; then
-    the segments alone (``time_segments``), whose times it returns."""
+    plain version, then the grid and the tile walk in turns (grid, tile,
+    tile, grid), with the same validation draws (epoch 1's), timed with
+    CUDA events and each walk held to the plain version; then the segments
+    alone (``time_segments``), whose times it returns."""
     from tpu_mf_torch.models.mf import rmse
     from tpu_mf_torch.ops.sgd_cells import _dup_stats
     from tpu_mf_torch.train.loop import _admf_key
@@ -1530,28 +1666,35 @@ def time_admf_epoch(torch, cfg, runner, train, test, phase, name):
         f"{runner.pick_phi_groups(eta)}; per-column duplicate maxima user "
         f"{dups[0]}, item {dups[1]}: eta x maxima {eta * dups[0]:.3g}, "
         f"{eta * dups[1]:.3g}")
+    log_walk(phase, name, runner)
     runner.pad(init)
     samples = torch.stack([runner.draw_samples(key, s)
                            for s in range(runner.segments)])
-    times = {"kernel": [], "plain": []}
+    times = {w: [] for w in ("plain",) + WALKS}
     out = adreg_epochs(torch, runner, init, eta, eta_reg, key,
-                       ("plain", "kernel", "kernel", "plain"), samples, times)
+                       ("plain", "grid", "tile", "tile", "grid"), samples,
+                       times)
     n = len(train)
     for what, ts in times.items():
         log(f"# phase {phase}: {name} {what}: epoch ms (hypergradient steps "
             f"included) {[round(x, 3) for x in ts]}, rating updates/s "
             f"{[round(n / (x / 1e3)) for x in ts]}")
-    got, want = (runner.trim(out[w][0]) for w in ("kernel", "plain"))
-    err = hold(f"{name} epoch 1 (eta {eta:g}), kernel vs plain", got, want,
-               init.params, ATOL_CELL_FULL, phase)
-    hold_lams(f"{name} epoch 1", out["kernel"][1], out["plain"][1],
-              torch.stack(list(init[5:])), phase)
-    rm_k, rm_p = rmse(got, test), rmse(want, test)
-    log(f"# phase {phase}: {name} tRMSE after epoch 1: kernel {rm_k:.6f} "
-        f"plain {rm_p:.6f}")
-    if not abs(rm_k - rm_p) <= 1e-3:
-        raise AssertionError(f"{name}: tRMSE of kernel and plain disagree")
-    return err, time_segments(torch, runner, init, eta, n, phase, name)
+    want = runner.trim(out["plain"][0])
+    errs = {}
+    for walk in WALKS:
+        got = runner.trim(out[walk][0])
+        errs[walk] = hold(f"{name} epoch 1 (eta {eta:g}), {walk} walk vs "
+                          "plain", got, want, init.params, ATOL_CELL_FULL,
+                          phase)
+        hold_lams(f"{name} epoch 1, {walk} walk", out[walk][1],
+                  out["plain"][1], torch.stack(list(init[5:])), phase)
+        rm_k, rm_p = rmse(got, test), rmse(want, test)
+        log(f"# phase {phase}: {name} tRMSE after epoch 1: {walk} walk "
+            f"{rm_k:.6f} plain {rm_p:.6f}")
+        if not abs(rm_k - rm_p) <= 1e-3:
+            raise AssertionError(f"{name}: tRMSE of the {walk} walk and "
+                                 "plain disagree")
+    return errs, time_segments(torch, runner, init, eta, n, phase, name)
 
 
 def phase_admf(torch, train, valid, test, phase, dim, eta, family, runner):
@@ -1560,8 +1703,8 @@ def phase_admf(torch, train, valid, test, phase, dim, eta, family, runner):
     the main path's runner, rebuilt)."""
     from tpu_mf_torch.train.loop import _admf_runner
 
-    cfg, state, lines, per_epoch = run_admf(torch, train, valid, test, phase,
-                                            dim, eta)
+    cfg, state, lines, per_epoch, walks = run_admf(torch, train, valid,
+                                                   test, phase, dim, eta)
     if runner is None:
         runner = _admf_runner(cfg, train, valid, state, lambda _: None,
                               DEVICE)
@@ -1574,7 +1717,11 @@ def phase_admf(torch, train, valid, test, phase, dim, eta, family, runner):
         if k != family:
             only(per_epoch, k, ())
     _, timed = time_admf_epoch(torch, cfg, runner, train, test, phase, family)
-    return cfg, state, launches, timed
+    route = runner.route()
+    if walks[route] != sum(per_epoch[family]):
+        raise AssertionError(f"{family}: {walks} launches by walk, not all "
+                             f"on the routed {route} walk")
+    return cfg, state, launches, timed, route
 
 
 def phase_slot_admf(torch, tas, tsl, atrain, avalid, test):
@@ -1596,10 +1743,10 @@ def phase_slot_admf(torch, tas, tsl, atrain, avalid, test):
         f"{probe._vdup_max[8]}: eta {eta8:g} (host statistics in "
         f"{time.perf_counter() - t:.1f} s)")
     if eta8 >= 1e-5:
-        _, _, launches, timed = phase_admf(
+        _, _, launches, timed, route = phase_admf(
             torch, atrain, avalid, test, 17, DIM_AD8, eta8, "slot_adreg",
             probe)
-        return launches, timed
+        return launches, timed, route
     # not forced past the gate: the main path at dim 8 is gen-1's, and the
     # slot kernel is only timed against its plain version
     log(f"# phase 17: the slot gate refuses every eta >= 1e-5 at dim "
@@ -1609,7 +1756,7 @@ def phase_slot_admf(torch, tas, tsl, atrain, avalid, test):
     return 0, time_segments(
         torch, probe, admf_state(torch, atrain, DIM_AD8, cfg.gb, LAM_AD,
                                  seed=cfg.seed),
-        ETA_AD, len(atrain), 17, "slot_adreg")
+        ETA_AD, len(atrain), 17, "slot_adreg"), probe.route()
 
 
 def phase_checkpoint_admf(torch, cfg, state, nu, nv):
@@ -1841,15 +1988,21 @@ def phase_free(torch, tc, tm, tf, train, test):
     return launches, timed
 
 
-def entry(name, replaces, launches, err, timed, source=None):
+def entry(name, replaces, launches, err, timed, source=None, walk=None):
+    """A kernel's line of the JSON summary; ``walk`` names the walk of
+    ``csrc/sgld_cells.cu`` or ``csrc/adreg_cells.cu`` that the main path
+    took (and that ``ms`` and ``max_abs_err`` are of)."""
     ms, plain_ms, (bound_ms, bound_by) = timed
-    return {"name": name, "route": "cuda",
-            "source": source or f"tpu_mf_torch/csrc/{name}.cu",
-            "replaces": replaces, "launches": launches, "max_abs_err": err,
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by,
-            # no single PyTorch call computes an SGD, SGLD or AdaptReg epoch
-            "library_ms": None}
+    out = {"name": name, "route": "cuda",
+           "source": source or f"tpu_mf_torch/csrc/{name}.cu",
+           "replaces": replaces, "launches": launches, "max_abs_err": err,
+           "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+           "bound_by": bound_by,
+           # no single PyTorch call computes an SGD, SGLD or AdaptReg epoch
+           "library_ms": None}
+    if walk is not None:
+        out["walk"] = walk
+    return out
 
 
 # phases that run together: a later one reads what the first one made
@@ -1969,23 +2122,25 @@ def main(argv=None) -> int:
         sgld_errs = phase_compare_sgld(torch, tg, tss,
                                        np.random.default_rng(3))
     if want(12):
-        dcfg, dstate, sgld_launches, sgld_t = phase_dpmf(
+        dcfg, dstate, sgld_launches, sgld_t, sgld_walk = phase_dpmf(
             torch, tg, tss, train, test, 12, DIM_DP, "sgld")
         phase_checkpoint_dpmf(torch, dcfg, dstate)
     if want(13):
-        _, _, slot_sgld_launches, slot_sgld_t = phase_dpmf(
+        _, _, slot_sgld_launches, slot_sgld_t, slot_sgld_walk = phase_dpmf(
             torch, tg, tss, train, test, 13, DIM_DP8, "slot_sgld")
     if want(11, 12, 13):
         lap("11-14")
     if ran(11, 12):
         ent["sgld"] = entry(
             "sgld", "tpu_mf/ops/pallas_sgld.py:120", sgld_launches,
-            sgld_errs["sgld"]["bfloat16"], sgld_t, sgld_src)
+            sgld_errs["sgld"][sgld_walk, "bfloat16"], sgld_t, sgld_src,
+            sgld_walk)
     if ran(11, 13):
         ent["slot_sgld"] = entry(
             "slot_sgld", "tpu_mf/ops/pallas_sgld_slot.py:59",
-            slot_sgld_launches, sgld_errs["slot_sgld"]["bfloat16"],
-            slot_sgld_t, sgld_src)
+            slot_sgld_launches,
+            sgld_errs["slot_sgld"][slot_sgld_walk, "bfloat16"], slot_sgld_t,
+            sgld_src, slot_sgld_walk)
     if want(15):
         ad_errs = phase_compare_adreg(torch, tac, tas,
                                       np.random.default_rng(4))
@@ -1993,23 +2148,23 @@ def main(argv=None) -> int:
     if want(16, 17):
         atrain, avalid = train.split(0.05, seed=3)
     if want(16):
-        acfg, astate, ad_launches, ad_t = phase_admf(
+        acfg, astate, ad_launches, ad_t, ad_walk = phase_admf(
             torch, atrain, avalid, test, 16, DIM_AD, ETA_AD, "adreg", None)
         phase_checkpoint_admf(torch, acfg, astate, atrain.nu, atrain.nv)
         lap("16, 18")
     if want(17):
-        slot_ad_launches, slot_ad_t = phase_slot_admf(torch, tas, tsl,
-                                                      atrain, avalid, test)
+        slot_ad_launches, slot_ad_t, slot_ad_walk = phase_slot_admf(
+            torch, tas, tsl, atrain, avalid, test)
         lap("17")
     if ran(15, 16):
         ent["adreg"] = entry(
             "adreg", "tpu_mf/ops/pallas_adreg.py:46", ad_launches,
-            ad_errs["adreg"]["bfloat16"], ad_t, adreg_src)
+            ad_errs["adreg"][ad_walk, "bfloat16"], ad_t, adreg_src, ad_walk)
     if ran(15, 17):
         ent["slot_adreg"] = entry(
             "slot_adreg", "tpu_mf/ops/pallas_adreg_slot.py:51",
-            slot_ad_launches, ad_errs["slot_adreg"]["bfloat16"], slot_ad_t,
-            adreg_src)
+            slot_ad_launches, ad_errs["slot_adreg"][slot_ad_walk, "bfloat16"],
+            slot_ad_t, adreg_src, slot_ad_walk)
     if want(19):
         mf_errs = phase_compare_mega_free(torch, tc, tpk, tm, tf,
                                           np.random.default_rng(5))

@@ -505,6 +505,175 @@ def test_train_admf_on_gpu_runs_the_kernel(cuda, dim, family):
     assert min(float(x) for x in out[5:]) >= 0
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("walk", ["tile", "grid"])
+@pytest.mark.parametrize("case", sorted(ADREG_CASES))
+@pytest.mark.parametrize("family,dim", [("gen1", 40), ("slot", 8),
+                                        ("stripe", 26)])
+@pytest.mark.parametrize("mxu,atol", [("float32", 1e-4), ("bfloat16", 2e-3)])
+def test_adreg_walks_match_reference(cuda, mxu, atol, family, dim, case,
+                                     walk):
+    """Each AdaptReg walk of csrc/adreg_cells.cu forced on a whole
+    segmented epoch against the plain version (the tolerances of
+    test_adreg_kernel_epoch_matches_reference): gen-1 plans padded to whole
+    segments (the last batch all padding, and padding columns at each user
+    tile's end), slot plans at 2+ column windows, striped plans at the
+    groups eta 0.05 picks; the launches count on the forced walk."""
+    loss, eta_lam = ADREG_CASES[case]
+    ds, va = adreg_sets(loss)
+    r = ADREG[family](ds, va, dim, seed=7, mxu=mxu, loss=loss, device=cuda)
+    eta = 0.05
+    if family == "slot":
+        eta = 0.2 / max(r._dup_max[2], r._vdup_max[2])
+    plan = r.materialize()._dev[0]
+    if family == "gen1":
+        w = plan.w.sum(2).cpu().numpy()
+        assert (w[-1] == 0).any()  # the last batch has padding columns
+    state = np_admf_state(ds, dim, eta_lam / eta, 0.0 if loss else 3.0,
+                          cuda)
+    got = r.pad(state)
+    lam0 = r.lams.clone()
+    want = tuple(t.clone() for t in got)
+    r.epoch(want, eta, 0.5, 3, reference=True)
+    lam_want, r.lams = r.lams, lam0.clone()
+    before = dict(tac.adreg_segment.walks)
+    r.epoch(got, eta, 0.5, 3, walk=walk)
+    torch.cuda.synchronize()
+    assert tac.adreg_segment.walks[walk] == before[walk] + r.segments
+    for a, b in zip(got, want):
+        assert float((a - b).abs().max()) <= atol
+    moved = float((lam_want - lam0).abs().max())
+    assert float((r.lams - lam_want).abs().max()) <= 1e-2 * moved + 1e-7
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("walk", ["tile", "grid"])
+@pytest.mark.parametrize("temp", [0.0, 1.0])
+@pytest.mark.parametrize("family,dim", [("gen1", 8), ("gen1", 128),
+                                        ("slot", 8), ("stripe", 26)])
+@pytest.mark.parametrize("mxu,atol", [("float32", 1e-4), ("bfloat16", 2e-3)])
+def test_sgld_walks_match_reference(cuda, mxu, atol, family, dim, temp,
+                                    walk):
+    """Each SGLD walk of csrc/sgld_cells.cu forced on one round against the
+    plain version (the same normals or ring on both sides; the tolerances
+    of test_sgld_cell_kernel_matches_reference), stamps equal as integers;
+    the launch counts on the forced walk."""
+    from tpu_mf_torch.models.dpmf import dpmf_state_from_numpy
+    from tpu_mf_torch.ops import sgld_cells as tg
+    from tpu_mf_torch.ops import sgld_slot as tss
+
+    ds = synthetic_ratings(500, 400, 40000, rank=3, noise=0.3, seed=5,
+                           zipf=1.0, zipf_q=20.0)
+    state = dpmf_state_from_numpy(np_dpmf_state(ds, dim, 6, stamps=3), cuda)
+    if family == "gen1":
+        r = tg.SgldCellRunner(ds, tile_u=96, tile_v=80, batch=1024, seed=7,
+                              mxu=mxu, device=cuda)
+        hyper = sgld_hyper(ds, temp)
+        fn = tg.sgld_cell_epoch
+    else:
+        r = tss.SlotSgldRunner(ds, sub=64 if family == "stripe" else 32,
+                               seed=7, mxu=mxu, dim=dim,
+                               striped=family == "stripe",
+                               noise_every=1 if family == "stripe" else 8,
+                               device=cuda)
+        hyper = sgld_hyper(ds, temp, scal=0.05)
+        ring = tss.slot_ring(13, r.tile_u, r.tile_v, cuda)
+        fn = tss.sgld_slot_epoch
+    got = r.pad(state)
+    want = tuple(t.clone() for t in got)
+    plan = r._dev[0]
+    if family == "gen1":
+        tg.sgld_cell_epoch_reference(*want, *r.invf, r.lam, plan, 3, hyper,
+                                     dim, 13, r.work_dtype)
+        before = dict(fn.walks)
+        r.epoch(got, 3, hyper, noise_seed=13, walk=walk)
+    else:
+        tss.sgld_slot_epoch_reference(
+            *want, *r.invf, r.lam, plan, 3, hyper, dim, 13, ring, r.pack,
+            r.noise_every, tss.saturation_cap(hyper[3]), r.work_dtype)
+        before = dict(fn.walks)
+        r.epoch(got, 3, hyper, noise_seed=13, ring=ring, walk=walk)
+    torch.cuda.synchronize()
+    assert fn.walks[walk] == before[walk] + 1
+    held(got, want, atol)
+    start = r.pad(state)
+    assert float((got[0] - start[0]).abs().max()) > 1e-3  # it trained
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["adreg", "sgld", "slot_sgld"])
+def test_tile_walk_on_clusters_of_16(cuda, family):
+    """The tile walk on clusters of 16 blocks (the wide windows' size,
+    past the portable 8) against the plain version, f32: a gen-1 AdaptReg
+    epoch, a gen-1 and a slot SGLD round at temp 1."""
+    from tpu_mf_torch.models.dpmf import dpmf_state_from_numpy
+    from tpu_mf_torch.ops import sgld_cells as tg
+    from tpu_mf_torch.ops import sgld_slot as tss
+
+    ds, va = adreg_sets(0)
+    if family == "adreg":
+        r = ADREG["gen1"](ds, va, 40, seed=7, mxu="float32", loss=0,
+                          device=cuda)
+        r.materialize()
+        r.walks = [w._replace(cluster=16) for w in r.walks]
+        state = np_admf_state(ds, 40, 0.02, 3.0, cuda)
+        got = r.pad(state)
+        lam0 = r.lams.clone()
+        want = tuple(t.clone() for t in got)
+        r.epoch(want, 0.05, 0.5, 3, reference=True)
+        r.lams = lam0
+        r.epoch(got, 0.05, 0.5, 3, walk="tile")
+        torch.cuda.synchronize()
+        for a, b in zip(got, want):
+            assert float((a - b).abs().max()) <= 1e-4
+        return
+    state = dpmf_state_from_numpy(np_dpmf_state(ds, 8, 6, stamps=3), cuda)
+    if family == "sgld":
+        r = tg.SgldCellRunner(ds, tile_u=96, tile_v=80, batch=1024, seed=7,
+                              mxu="float32", device=cuda)
+    else:
+        r = tss.SlotSgldRunner(ds, sub=32, seed=7, mxu="float32", dim=8,
+                               device=cuda)
+    r.materialize()
+    r._dev = [p._replace(walk=p.walk._replace(cluster=16)) for p in r._dev]
+    hyper = sgld_hyper(ds, 1.0, scal=0.05)
+    got = r.pad(state)
+    want = tuple(t.clone() for t in got)
+    if family == "sgld":
+        tg.sgld_cell_epoch_reference(*want, *r.invf, r.lam, r._dev[0], 3,
+                                     hyper, 8, 13)
+        r.epoch(got, 3, hyper, noise_seed=13, walk="tile")
+    else:
+        ring = tss.slot_ring(13, r.tile_u, r.tile_v, cuda)
+        tss.sgld_slot_epoch_reference(
+            *want, *r.invf, r.lam, r._dev[0], 3, hyper, 8, 13, ring, r.pack,
+            r.noise_every, tss.saturation_cap(hyper[3]))
+        r.epoch(got, 3, hyper, noise_seed=13, ring=ring, walk="tile")
+    torch.cuda.synchronize()
+    held(got, want, 1e-4)
+
+
+@pytest.mark.cuda
+def test_tile_walk_launch_failures_raise(cuda):
+    """A tile walk the card cannot launch raises: clusters of 32 blocks
+    (past the 16 a cluster can hold) and a walk on another device's
+    counters."""
+    from tpu_mf_torch.ops import tile_walk as tw
+
+    ds, va = adreg_sets(0)
+    r = ADREG["gen1"](ds, va, 40, seed=7, mxu="float32", loss=0,
+                      device=cuda)
+    tabs = r.pad(np_admf_state(ds, 40, 0.02, 3.0, cuda))
+    walk = r.walks[0]
+    for bad, err in ((walk._replace(cluster=32), RuntimeError),
+                     (walk._replace(counters=tw.TileWalkCounters(1, 1, "cpu")),
+                      ValueError)):
+        with pytest.raises(err):
+            tac.adreg_segment(*tabs, r._dev[0], 0, r.seg_len(), 0.05, r.lams,
+                              r.gb, 40, walk=bad)
+            torch.cuda.synchronize()
+
+
 def zipf_free_data():
     """3 x 4 tiles of 128 with zipfy heads, sub 128 (no sentinel column)."""
     return synthetic_ratings(380, 500, 40000, rank=3, noise=0.3, seed=5,

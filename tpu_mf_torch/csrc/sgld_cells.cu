@@ -57,6 +57,16 @@
 // stamps change between phases on other SMs: they are read through L2
 // (ld.global.cg).
 //
+// The tile walk (sgld_walk_kernel, tile_walk.cuh, ops/tile_walk.py) runs
+// the same windows as units (runs of real columns on one user tile), one
+// thread-block cluster each, ordered by ready counters per tile instead of
+// grid syncs. In gen-1 mode the batch-start noise moves into the unit: the
+// user rows of batch i take theirs when the unit enters batch i, the item
+// rows of tile v after the wait on v, before the batch's first column on v.
+// That is exact: a row takes noise only at its first touch in a batch, the
+// columns between leave it as it was, and the normals hash (seed + i, side,
+// row, lane) at the clock cum[i], none of which depends on the order.
+//
 // What bounds it on the H100. The bytes and operations are small (each real
 // rating read once, each row read and written once; 6 (dim + 2) f32
 // operations per rating, a normal per kept lane per noisy row, an exp per
@@ -71,12 +81,15 @@
 
 #include <cooperative_groups.h>
 
+#include "tile_walk.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int kWarps = 32;   // warps per block of the persistent kernel
 constexpr int kCached = 4;   // 32-lane row chunks held in registers
+constexpr int kWalkCached = 5;  // the tile walk's: dim <= 157 in one trip
 constexpr int kRingLanes = 128;
 
 template <bool kBF16>
@@ -135,6 +148,7 @@ struct SgldArgs {
   const int* gu; const int* gv; const int* ap; const long long* cum;
   const int* tu_off; const int* tu_ids; const int* tv_off; const int* tv_ids;
   const float* ring; float* dtheta; float* acc;
+  const int* nz_lo; const int* nz_hi;  // the tile walk's item noise ranges
   long long clock0;
   int nb, col, tile_u, tile_v, lanes, dim, pack, nq_u, nq_v, noise_every;
   uint32_t seed;
@@ -153,10 +167,10 @@ __device__ __forceinline__ Slot load_slot(const SgldArgs& a, int cix,
 }
 
 // One slot, one warp: gather both rows, predict, scatter the deltas. The
-// first kCached 32-lane chunks of both rows stay in registers.
-template <bool kBF16>
+// first kC 32-lane chunks of both rows stay in registers.
+template <bool kBF16, int kC = kCached>
 __device__ __forceinline__ void step_slot(const SgldArgs& a, const Slot& sl,
-                                          int gut, int lane) {
+                                          int gut, float* dtheta, int lane) {
   const float wk = sl.w, rk = sl.r;
   if (wk == 0.f) return;  // padded slot (sentinel ids): contributes nothing
   const int dim = a.dim, lanes = a.lanes;
@@ -164,32 +178,32 @@ __device__ __forceinline__ void step_slot(const SgldArgs& a, const Slot& sl,
   const long long vrow = (long long)sl.gv * a.tile_v + sl.v;
   const float* pr = a.phi + vrow * lanes;
   const int n = dim + 2;  // lanes >= dim + 2 are zero in both rows
-  float tc[kCached], pc[kCached];
+  float tc[kC], pc[kC];
   float part = 0.f;
 #pragma unroll
-  for (int j = 0; j < kCached; ++j) {
+  for (int j = 0; j < kC; ++j) {
     const int l = lane + 32 * j;
     tc[j] = l < n ? to_work<kBF16>(ld(tr + l)) : 0.f;
     pc[j] = l < n ? to_work<kBF16>(ld(pr + l)) : 0.f;
     part += tc[j] * pc[j];
   }
-  for (int l = lane + 32 * kCached; l < n; l += 32)
+  for (int l = lane + 32 * kC; l < n; l += 32)
     part += to_work<kBF16>(ld(tr + l)) * to_work<kBF16>(ld(pr + l));
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) part += __shfl_xor_sync(0xffffffffu, part, o);
   const float err = (a.scal * wk) * (rk - (part + a.gb));
   // each side's one-lane takes the other side's bias term, which its apply
   // never reads: skip those two adds
-  float* du = a.dtheta + (long long)sl.u * lanes;
+  float* du = dtheta + (long long)sl.u * lanes;
   float* dv = a.acc + vrow * lanes;
 #pragma unroll
-  for (int j = 0; j < kCached; ++j) {
+  for (int j = 0; j < kC; ++j) {
     const int l = lane + 32 * j;
     if (l >= n) break;
     if (l != dim + 1) atomicAdd(du + l, to_work<kBF16>(err * pc[j]));
     if (l != dim) atomicAdd(dv + l, to_work<kBF16>(err * tc[j]));
   }
-  for (int l = lane + 32 * kCached; l < n; l += 32) {
+  for (int l = lane + 32 * kC; l < n; l += 32) {
     const float t = to_work<kBF16>(ld(tr + l)), p = to_work<kBF16>(ld(pr + l));
     if (l != dim + 1) atomicAdd(du + l, to_work<kBF16>(err * p));
     if (l != dim) atomicAdd(dv + l, to_work<kBF16>(err * t));
@@ -218,7 +232,8 @@ __device__ __forceinline__ void hash_noise_row(float* tr, long long* st,
 
 // Decay one table row and add its window delta (saturated), plus its noise
 // from `nz` (indexed by table lane) when given, then clear the delta. The
-// count and the first kCached chunks arrive in one round trip.
+// count and the first kC chunks arrive in one round trip.
+template <int kC = kCached>
 __device__ __forceinline__ void apply_row(float* tr, float* dr, long long* st,
                                           float inv, const float* lamv,
                                           bool user, const SgldArgs& a,
@@ -228,9 +243,9 @@ __device__ __forceinline__ void apply_row(float* tr, float* dr, long long* st,
   const int dim = a.dim, n = dim + 3;
   const float k = ld(dr + dim + 2);
   const long long stamp = nz ? ld(st) : 0;
-  float dc[kCached], rc[kCached];
+  float dc[kC], rc[kC];
 #pragma unroll
-  for (int j = 0; j < kCached; ++j) {
+  for (int j = 0; j < kC; ++j) {
     const int l = lane + 32 * j;
     dc[j] = l < n ? ld(dr + l) : 0.f;
     rc[j] = l < n ? ld(tr + l) : 0.f;
@@ -253,14 +268,64 @@ __device__ __forceinline__ void apply_row(float* tr, float* dr, long long* st,
     dr[l] = 0.f;
   };
 #pragma unroll
-  for (int j = 0; j < kCached; ++j) {
+  for (int j = 0; j < kC; ++j) {
     const int l = lane + 32 * j;
     if (l >= n) break;
     update(l, rc[j], dc[j]);
   }
-  for (int l = lane + 32 * kCached; l < n; l += 32)
+  for (int l = lane + 32 * kC; l < n; l += 32)
     update(l, ld(tr + l), ld(dr + l));
   if (nz && lane == 0) *st = clock;
+}
+
+// Gen-1 mode: the lazy noise of batch i's touched rows, n_u user rows from
+// tu_ids[u0:] (tile-local, the user tile at urow0) and n_v item rows from
+// tv_ids[v0:], spread over warps `warp`, `warp + n_warps`, ...
+__device__ __forceinline__ void inject_noise(const SgldArgs& a, int i,
+                                             long long clock, long long urow0,
+                                             int u0, int n_u, int v0, int n_v,
+                                             int warp, int n_warps, int lane) {
+  for (int q = warp; q < n_u + n_v; q += n_warps) {
+    const bool user = q < n_u;
+    const long long row =
+        user ? urow0 + a.tu_ids[u0 + q] : (long long)a.tv_ids[v0 + q - n_u];
+    hash_noise_row((user ? a.theta : a.phi) + row * a.lanes,
+                   (user ? a.stamp_u : a.stamp_v) + row, user, a.dim, a.te,
+                   clock, row_key(a.seed, i, user ? 0 : 1, row), lane);
+  }
+}
+
+// The apply of one row of the user tile `tile` (its delta in `dtheta`) or
+// of item tile `tile` (its delta in acc) at batch i: flag 2 adds the
+// round's ring noise (slot mode: the TPU kernel's ring slice and slot
+// lanes).
+template <bool kSlot, int kC = kCached>
+__device__ __forceinline__ void apply_tile_row(const SgldArgs& a,
+                                               float* dtheta, bool user,
+                                               int local, int tile, int flag,
+                                               int i, long long clock,
+                                               int lane) {
+  const int rows = user ? a.tile_u : a.tile_v;
+  const long long row = (long long)tile * rows + local;
+  const float* nz = nullptr;
+  if (kSlot && flag == 2) {
+    const int site = user ? tile * a.tile_u + 1 : tile * a.tile_v;
+    const int nq = user ? a.nq_u : a.nq_v;
+    const int vq = static_cast<int>(static_cast<uint32_t>(i) * 40503u +
+                                    static_cast<uint32_t>(site) * 25253u +
+                                    a.seed);
+    const int qs = (vq ^ (vq >> 7)) & (nq - 1);
+    const int P = a.pack, s = local % P;
+    nz = a.ring + (long long)(qs * 8 + s * (rows / P) + local / P) *
+                      kRingLanes + s * (kRingLanes / P);
+  }
+  float* tab = (user ? a.theta : a.phi) + row * a.lanes;
+  float* d = user ? dtheta + (long long)local * a.lanes
+                  : a.acc + row * a.lanes;
+  apply_row<kC>(tab, d, (user ? a.stamp_u : a.stamp_v) + row,
+            __ldg((user ? a.invf_u : a.invf_v) + row),
+            a.lam + (user ? 0 : a.lanes), user, a, kSlot, nz, a.te, clock,
+            lane);
 }
 
 // One round in one cooperative launch (see the top of the file).
@@ -283,16 +348,9 @@ sgld_epoch_kernel(SgldArgs a) {
     const long long clock = a.clock0 + a.cum[i];
     if constexpr (!kSlot) {
       const int u0 = a.tu_off[i], n_u = a.tu_off[i + 1] - u0;
-      const int v0 = a.tv_off[i], n_all = n_u + a.tv_off[i + 1] - v0;
-      for (int q = gwarp; q < n_all; q += n_warps) {
-        const bool user = q < n_u;
-        const long long row =
-            user ? urow0 + a.tu_ids[u0 + q] : (long long)a.tv_ids[v0 + q - n_u];
-        hash_noise_row((user ? a.theta : a.phi) + row * a.lanes,
-                       (user ? a.stamp_u : a.stamp_v) + row, user, a.dim,
-                       a.te, clock, row_key(a.seed, i, user ? 0 : 1, row),
-                       lane);
-      }
+      const int v0 = a.tv_off[i];
+      inject_noise(a, i, clock, urow0, u0, n_u, v0, a.tv_off[i + 1] - v0,
+                   gwarp, n_warps, lane);
       grid.sync();
     }
     for (int c0 = 0; c0 < 8; c0 += step) {
@@ -300,7 +358,7 @@ sgld_epoch_kernel(SgldArgs a) {
         const int cix = i * 8 + c0 + q / a.col;
         const Slot sl = have_next && q == gwarp
             ? next : load_slot(a, cix, (long long)cix * a.col + q % a.col);
-        step_slot<kBF16>(a, sl, gut, lane);
+        step_slot<kBF16>(a, sl, gut, a.dtheta, lane);
       }
       const int ni = c0 + step < 8 ? i : i + 1;
       const int nc = c0 + step < 8 ? c0 + step : 0;
@@ -314,45 +372,135 @@ sgld_epoch_kernel(SgldArgs a) {
           kSlot && i % a.noise_every == a.noise_every - 1;
       const int total = step * a.tile_v + a.tile_u;
       for (int q = gwarp; q < total; q += n_warps) {
-        const bool user = q >= step * a.tile_v;
-        long long row;
-        int local, tile, site, nq;
-        bool noisy;
-        if (user) {
-          local = q - step * a.tile_v;
-          row = urow0 + local;
-          tile = a.tile_u, site = gut * a.tile_u + 1, nq = a.nq_u;
-          noisy = noisy_u;
+        if (q >= step * a.tile_v) {
+          apply_tile_row<kSlot>(a, a.dtheta, true, q - step * a.tile_v, gut,
+                                noisy_u ? 2 : 1, i, clock, lane);
         } else {
           const int cix = i * 8 + c0 + q / a.tile_v;
           const int flag = kSlot ? a.ap[cix] : 1;
           if (flag == 0) continue;
-          local = q % a.tile_v;
-          row = (long long)a.gv[cix] * a.tile_v + local;
-          tile = a.tile_v, site = a.gv[cix] * a.tile_v, nq = a.nq_v;
-          noisy = kSlot && flag == 2;
+          apply_tile_row<kSlot>(a, a.dtheta, false, q % a.tile_v, a.gv[cix],
+                                flag, i, clock, lane);
         }
-        const float* nz = nullptr;
-        if (noisy) {  // the TPU kernel's ring slice and slot lanes
-          const int vq = static_cast<int>(static_cast<uint32_t>(i) * 40503u +
-                                          static_cast<uint32_t>(site) * 25253u +
-                                          a.seed);
-          const int qs = (vq ^ (vq >> 7)) & (nq - 1);
-          const int P = a.pack, s = local % P;
-          nz = a.ring + (long long)(qs * 8 + s * (tile / P) + local / P) *
-                            kRingLanes + s * (kRingLanes / P);
-        }
-        float* tab = (user ? a.theta : a.phi) + row * a.lanes;
-        float* d = user ? a.dtheta + (long long)local * a.lanes
-                        : a.acc + row * a.lanes;
-        apply_row(tab, d, (user ? a.stamp_u : a.stamp_v) + row,
-                  __ldg((user ? a.invf_u : a.invf_v) + row),
-                  a.lam + (user ? 0 : a.lanes), user, a,
-                  kSlot, nz, a.te, clock, lane);
       }
       grid.sync();
     }
   }
+}
+
+// The tile walk (tile_walk.cuh, ops/tile_walk.py): the same windows (one
+// column in gen-1 mode, one batch in slot mode), each unit (a run of real
+// columns on one user tile) on one cluster of C blocks. Per window: each
+// block's threads wait on the item tiles the unit touches first in it; in
+// gen-1 mode the noise of the batch's user rows when the unit enters the
+// batch, and of its item rows on a tile at the batch's first column on
+// that tile (nz_lo/nz_hi), then a cluster barrier; the scatter of the
+// window's real slots into the cluster's own dtheta slice and acc; a
+// cluster barrier; the applies of the user tile and of the item tiles
+// flagged (every real column in gen-1 mode, w.tap in slot mode); a cluster
+// barrier; the releases of the item tiles whose last touch was applied.
+template <bool kBF16, bool kSlot>
+__global__ void __launch_bounds__(32 * kWarps, 1)
+sgld_walk_kernel(SgldArgs a, tile_walk::Walk w) {
+  cg::cluster_group cl = cg::this_cluster();
+  __shared__ int s_unit;
+  const int lane = threadIdx.x % 32;
+  const int n_cw = static_cast<int>(cl.num_blocks()) * kWarps;
+  const int cw = static_cast<int>(cl.block_rank()) * kWarps + threadIdx.x / 32;
+  const bool lead = cl.block_rank() == 0;
+  float* dth = w.dtheta +
+      (long long)(blockIdx.x / cl.num_blocks()) * a.tile_u * a.lanes;
+  constexpr int step = kSlot ? 8 : 1;  // columns per window
+  TW_CLOCKS;
+  TW_START();
+  for (;;) {
+    const int unit = tile_walk::next_unit(w, &s_unit);
+    TW_TICK(0);
+    if (unit >= w.n_units) break;
+    const int c0 = __ldg(w.unit_c0 + unit), c1 = __ldg(w.unit_c1 + unit);
+    const int gut = __ldg(w.unit_gu + unit);
+    const long long urow0 = (long long)gut * a.tile_u;
+    if (threadIdx.x == 0)
+      tile_walk::wait_tile(w.ready + w.n_gv + gut, w.gen,
+                           __ldg(w.unit_wait + unit));
+    int batch = -1;  // the batch whose user rows took their noise
+    for (int s = c0 - c0 % step; s < c1; s += step) {
+      const int lo = s < c0 ? c0 : s, hi = s + step < c1 ? s + step : c1;
+      bool any = false;
+      for (int c = lo; c < hi; ++c) any |= __ldg(w.col_tile + c) >= 0;
+      if (!any) continue;
+      TW_COUNT();
+      if (threadIdx.x < step) {
+        const int c = s + threadIdx.x;
+        if (c >= lo && c < hi && __ldg(w.col_tile + c) >= 0)
+          tile_walk::wait_tile(w.ready + __ldg(w.col_tile + c), w.gen,
+                               __ldg(w.col_wait + c));
+      }
+      __syncthreads();  // the acquires hold for the whole block
+      TW_TICK(1);
+      const int i = s / 8;
+      const long long clock = a.clock0 + __ldg(a.cum + i);
+      if constexpr (!kSlot) {
+        const int u0 = i != batch ? __ldg(a.tu_off + i) : 0;
+        const int n_u = i != batch ? __ldg(a.tu_off + i + 1) - u0 : 0;
+        const int v0 = __ldg(a.nz_lo + s), n_v = __ldg(a.nz_hi + s) - v0;
+        batch = i;
+        if (n_u + n_v > 0) {
+          inject_noise(a, i, clock, urow0, u0, n_u, v0, n_v, cw, n_cw, lane);
+          cl.sync();  // the noisy rows before any gather
+        }
+        TW_TICK(2);
+      }
+      // each warp loads its next slot before it works on this one
+      auto fetch = [&](int q) {
+        const int cix = s + q / a.col;
+        return q < step * a.col && cix >= lo && cix < hi &&
+                       __ldg(w.col_tile + cix) >= 0
+                   ? load_slot(a, cix, (long long)cix * a.col + q % a.col)
+                   : Slot{};
+      };
+      Slot sl = fetch(cw);
+      for (int q = cw; q < step * a.col; q += n_cw) {
+        const Slot next = fetch(q + n_cw);
+        step_slot<kBF16, kWalkCached>(a, sl, gut, dth, lane);
+        sl = next;
+      }
+      TW_TICK(3);
+      cl.sync();  // every block's deltas are in
+      TW_TICK(4);
+      const bool noisy_u = kSlot && i % a.noise_every == a.noise_every - 1;
+      const int total = step * a.tile_v + a.tile_u;
+      for (int q = cw; q < total; q += n_cw) {
+        if (q >= step * a.tile_v) {
+          apply_tile_row<kSlot, kWalkCached>(a, dth, true,
+                                             q - step * a.tile_v, gut,
+                                             noisy_u ? 2 : 1, i, clock, lane);
+        } else {
+          const int cix = s + q / a.tile_v;
+          if (cix < lo || cix >= hi) continue;
+          const int tile = __ldg(w.col_tile + cix);
+          const int flag = kSlot ? __ldg(w.tap + cix) : tile >= 0;
+          if (flag == 0) continue;
+          apply_tile_row<kSlot, kWalkCached>(a, dth, false, q % a.tile_v,
+                                             tile, flag, i, clock, lane);
+        }
+      }
+      TW_TICK(5);
+      cl.sync();  // every block's applies are stored
+      TW_TICK(6);
+      if (lead && threadIdx.x < step) {
+        const int c = s + threadIdx.x;
+        if (c >= lo && c < hi && __ldg(w.col_rel + c) > 0)
+          tile_walk::release_tile(w.ready + __ldg(w.col_tile + c), w.gen,
+                                  __ldg(w.col_rel + c));
+      }
+      TW_TICK(7);
+    }
+    if (lead && threadIdx.x == 0)
+      tile_walk::release_tile(w.ready + w.n_gv + gut, w.gen,
+                              __ldg(w.unit_wait + unit) + 1);
+  }
+  TW_FLUSH();
 }
 
 template <bool kBF16, bool kSlot>
@@ -386,7 +534,10 @@ bool pow2(int x) { return x > 0 && (x & (x - 1)) == 0; }
 // (n_ring x 128), pack, nq_u/nq_v (ring slices per side, powers of two),
 // noise_every and the saturation cap. dtheta (tile_u x lanes) and acc (phi's
 // shape) must be zero on entry and are zero again on return. work: 0 = f32,
-// 1 = bf16. Returns 0 or the CUDA error code.
+// 1 = bf16. `walk` (a tile_walk::WalkLaunch, or null for the grid walk)
+// runs the round on the tile walk: dtheta is then unused, slot mode reads
+// the walk's tap instead of ap, and gen-1 mode its nz_lo / nz_hi. Returns
+// 0 or the CUDA error code.
 extern "C" int tmf_sgld_epoch(
     void* theta, void* phi, void* stamp_u, void* stamp_v, const void* invf_u,
     const void* invf_v, const void* lam, const void* u, const void* v,
@@ -396,7 +547,7 @@ extern "C" int tmf_sgld_epoch(
     void* acc, long long clock0, int nb, int col, int tile_u, int tile_v,
     int lanes, int dim, int work, int slot, int pack, int n_ring, int nq_u,
     int nq_v, int noise_every, int seed, float scal, float gb,
-    float eb, float te, float cap, void* stream) {
+    float eb, float te, float cap, const void* walk, void* stream) {
   if (dim + 3 > lanes || col <= 0 || nb < 0 || (work != 0 && work != 1))
     return static_cast<int>(cudaErrorInvalidValue);
   if (slot) {
@@ -418,11 +569,53 @@ extern "C" int tmf_sgld_epoch(
              static_cast<const long long*>(cum), static_cast<const int*>(tu_off),
              static_cast<const int*>(tu_ids), static_cast<const int*>(tv_off),
              static_cast<const int*>(tv_ids), static_cast<const float*>(ring),
-             static_cast<float*>(dtheta), static_cast<float*>(acc), clock0,
+             static_cast<float*>(dtheta), static_cast<float*>(acc), nullptr,
+             nullptr, clock0,
              nb, col, tile_u, tile_v, lanes, dim, pack, nq_u, nq_v,
              noise_every, static_cast<uint32_t>(seed), scal, gb, eb,
              te, cap};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (walk != nullptr) {
+    const auto& l = *static_cast<const tile_walk::WalkLaunch*>(walk);
+    if (slot ? l.tap == nullptr : (!l.nz_lo || !l.nz_hi))
+      return static_cast<int>(cudaErrorInvalidValue);
+    a.nz_lo = static_cast<const int*>(l.nz_lo);
+    a.nz_hi = static_cast<const int*>(l.nz_hi);
+    constexpr int kThreads = 32 * kWarps;
+    if (slot)
+      return work ? tile_walk::launch(sgld_walk_kernel<true, true>, a, l,
+                                      kThreads, st)
+                  : tile_walk::launch(sgld_walk_kernel<false, true>, a, l,
+                                      kThreads, st);
+    return work ? tile_walk::launch(sgld_walk_kernel<true, false>, a, l,
+                                    kThreads, st)
+                : tile_walk::launch(sgld_walk_kernel<false, false>, a, l,
+                                    kThreads, st);
+  }
   if (slot) return work ? run_epoch<true, true>(a, st) : run_epoch<false, true>(a, st);
   return work ? run_epoch<true, false>(a, st) : run_epoch<false, false>(a, st);
 }
+
+// The most clusters of `cluster` blocks of the tile walk (work: 0 = f32,
+// 1 = bf16; slot: 0 = gen-1 mode, 1 = slot mode) the card keeps resident at
+// once, into *out. Returns 0 or the CUDA error code.
+extern "C" int tmf_sgld_walk_clusters(int work, int slot, int cluster,
+                                      int* out) {
+  constexpr int kThreads = 32 * kWarps;
+  if (slot)
+    return work ? tile_walk::resident_clusters(sgld_walk_kernel<true, true>,
+                                               cluster, kThreads, out)
+                : tile_walk::resident_clusters(sgld_walk_kernel<false, true>,
+                                               cluster, kThreads, out);
+  return work ? tile_walk::resident_clusters(sgld_walk_kernel<true, false>,
+                                             cluster, kThreads, out)
+              : tile_walk::resident_clusters(sgld_walk_kernel<false, false>,
+                                             cluster, kThreads, out);
+}
+
+#ifdef TMF_TILE_CLOCKS
+// The diagnostic build's clock sums per phase since the last call.
+extern "C" int tmf_sgld_walk_clocks(void* out) {
+  return tile_walk::read_clocks(out);
+}
+#endif

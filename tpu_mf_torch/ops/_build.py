@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface. It is compiled with
 ``nvcc`` for Hopper (``sm_90a``) into ``build/<name>-<hash>.so`` beside the
-package, where the hash covers the source and the flags, so an edited
-source is rebuilt and an unchanged one is loaded as it is. Nothing here
+package, where the hash covers the source, the headers it includes from
+``csrc/`` (``#include "name.cuh"``) and the flags, so an edited source or
+header is rebuilt and an unchanged one is loaded as it is. Nothing here
 runs at import time: the CPU paths never need a compiler.
 """
 
@@ -12,6 +13,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -39,6 +41,23 @@ def _nvcc() -> str:
     return found
 
 
+def source_bytes(src: Path) -> bytes:
+    """The bytes of ``src`` and of every header it includes from
+    ``csrc/`` by a quoted ``#include``, recursively, each once."""
+    seen, todo, out = set(), [src], b""
+    while todo:
+        path = todo.pop()
+        if path in seen:
+            continue
+        seen.add(path)
+        text = path.read_bytes()
+        out += path.name.encode() + b"\0" + text
+        for name in re.findall(rb'^\s*#\s*include\s+"([^"]+)"', text,
+                               re.MULTILINE):
+            todo.append(CSRC / name.decode())
+    return out
+
+
 def build_all(names, defines=()) -> list[Path]:
     """Compile each ``csrc/<name>.cu`` that has no up-to-date library, one
     nvcc process per source, all started together; ``defines`` are macros
@@ -47,7 +66,7 @@ def build_all(names, defines=()) -> list[Path]:
     jobs = []
     for name in names:
         src = CSRC / f"{name}.cu"
-        key = src.read_bytes() + " ".join(flags).encode()
+        key = source_bytes(src) + " ".join(flags).encode()
         out = BUILD_DIR / f"{name}-{hashlib.sha256(key).hexdigest()[:12]}.so"
         proc = tmp = None
         if not out.exists():

@@ -25,10 +25,11 @@ summed. Everything between segments runs on the lambdas' device: the kernel
 reads them through a device pointer, and no segment waits for the host.
 
 ``adreg_segment`` launches the hand-written kernel ``csrc/adreg_cells.cu``
-on CUDA tensors and runs the plain version ``adreg_segment_reference`` on CPU
-tensors. The fused runners keep no per-rating shadow tables (only the
-batched path does): ``state`` returns shadows that are copies of the
-params.
+on CUDA tensors, on the walk ``ops/tile_walk.py: tile_walk_route`` picks for
+the plan (the tile walk of each segment's units, or the grid walk), and
+runs the plain version ``adreg_segment_reference`` on CPU tensors. The
+fused runners keep no per-rating shadow tables (only the batched path
+does): ``state`` returns shadows that are copies of the params.
 """
 
 from __future__ import annotations
@@ -57,6 +58,15 @@ from tpu_mf_torch.ops.sgd_cells import (
     upload_plan,
     window_keep,
     window_reference,
+)
+from tpu_mf_torch.ops.tile_walk import (
+    WALKS,
+    DeviceWalk,
+    TileWalkCounters,
+    pick_walk,
+    segment_walks,
+    upload_walk,
+    walk_launch,
 )
 
 # the validation set on a device: (u, v, r), ids in table rows
@@ -114,10 +124,18 @@ def adreg_segment_reference(theta: torch.Tensor, phi: torch.Tensor,
 
 
 def _adreg_lib() -> ctypes.CDLL:
-    lib = _build.load("adreg_cells")
+    return bind_adreg_lib(_build.load("adreg_cells"))
+
+
+def bind_adreg_lib(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """``lib``, a build of ``csrc/adreg_cells.cu``, with its entry points'
+    argument types set."""
     fn = lib.tmf_adreg_segment
     fn.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 11
-                   + [ctypes.c_float] * 2 + [ctypes.c_void_p])
+                   + [ctypes.c_float] * 2 + [ctypes.c_void_p] * 2)
+    fn.restype = ctypes.c_int
+    fn = lib.tmf_adreg_walk_clusters
+    fn.argtypes = [ctypes.c_int] * 2 + [ctypes.POINTER(ctypes.c_int)]
     fn.restype = ctypes.c_int
     return lib
 
@@ -125,11 +143,14 @@ def _adreg_lib() -> ctypes.CDLL:
 def adreg_segment(theta: torch.Tensor, phi: torch.Tensor, plan: DevicePlan,
                   b0: int, b1: int, eta: float, lams: torch.Tensor, gb: float,
                   dim: int, theta_groups: int = 8, phi_groups: int = 8,
-                  work: torch.dtype = torch.bfloat16, loss: int = 0) -> None:
+                  work: torch.dtype = torch.bfloat16, loss: int = 0,
+                  walk: DeviceWalk | None = None) -> None:
     """One AdaptReg segment (plan batches [b0, b1)), in place on the fused
     (theta_ext, phi_ext). CPU tensors take the plain version; CUDA tensors
     launch ``csrc/adreg_cells.cu``, which reads the four lambdas (``lams``,
-    float32, on the card) when it runs, or raise."""
+    float32, on the card) when it runs, or raise: on the tile walk of
+    ``walk`` (the plan's ``DeviceWalk``, whose ranges include [b0, b1)), or
+    on the grid walk when ``walk`` is None."""
     if theta_groups not in GROUPS or phi_groups not in GROUPS:
         raise ValueError(f"groups must divide the 8 columns, got "
                          f"{theta_groups}/{phi_groups}")
@@ -151,11 +172,19 @@ def adreg_segment(theta: torch.Tensor, phi: torch.Tensor, plan: DevicePlan,
                         (("lams", lams, torch.float32, (4,)),))
     lanes = theta.shape[1]
     ap = plan.ap[phi_groups]
-    d_theta = torch.zeros(plan.tile_u, lanes, dtype=torch.float32,
-                          device=theta.device)
     acc = torch.zeros_like(phi)
     lib = _adreg_lib()
     with torch.cuda.device(theta.device):
+        launch = None
+        if walk is None:
+            d_theta = torch.zeros(plan.tile_u, lanes, dtype=torch.float32,
+                                  device=theta.device)
+        else:
+            launch, d_theta = walk_launch(
+                walk, b0, b1, phi_groups, ("adreg", WORK[work]),
+                lambda c, out: lib.tmf_adreg_walk_clusters(WORK[work], c,
+                                                           out),
+                plan.tile_u, lanes, theta.device)
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.tmf_adreg_segment(
             theta.data_ptr(), phi.data_ptr(), plan.u.data_ptr(),
@@ -163,14 +192,19 @@ def adreg_segment(theta: torch.Tensor, phi: torch.Tensor, plan: DevicePlan,
             plan.gu.data_ptr(), plan.gv.data_ptr(), ap.data_ptr(),
             d_theta.data_ptr(), acc.data_ptr(), lams.data_ptr(), b0, b1, sub,
             plan.tile_u, plan.tile_v, lanes, dim, theta_groups, phi_groups,
-            WORK[work], loss, eta, gb, stream)
+            WORK[work], loss, eta, gb,
+            None if launch is None else ctypes.addressof(launch), stream)
     if rc != 0:
         raise RuntimeError(f"adreg_cells kernel launch failed: CUDA error "
                            f"{rc}")
+    if launch is not None:
+        walk.counters.advance(launch.n_units, launch.n_clusters)
     adreg_segment.launches += 1
+    adreg_segment.walks["grid" if walk is None else "tile"] += 1
 
 
 adreg_segment.launches = 0  # kernel launches (CUDA calls), not CPU runs
+adreg_segment.walks = dict.fromkeys(WALKS, 0)  # the launches by walk
 
 
 def hypergrad_ext_rows(new_t: torch.Tensor, new_p: torch.Tensor,
@@ -202,21 +236,25 @@ def adreg_segment_step(tables, lams: torch.Tensor, plan: DevicePlan, b0: int,
                        eta: float, eta_reg: float, visits: torch.Tensor,
                        gb: float, dim: int, theta_groups: int = 8,
                        phi_groups: int = 8, work: torch.dtype = torch.bfloat16,
-                       loss: int = 0, reference: bool = False
-                       ) -> torch.Tensor:
+                       loss: int = 0, reference: bool = False,
+                       walk: DeviceWalk | None = None) -> torch.Tensor:
     """One segment and the step after it (``tpu_mf``'s
     ``_run_adreg_seg_step``): the validation rows of ``samples`` gathered
     from the segment-start tables, the segment (``adreg_segment``, in place
-    on ``tables``; its plain version on any device with ``reference``), the
-    rows gathered again, and the hypergradient; returns the new lambdas.
-    ``visits`` is the segment's user-visits (0-d)."""
+    on ``tables``, on the tile walk of ``walk`` or the grid walk; its plain
+    version on any device with ``reference``), the rows gathered again, and
+    the hypergradient; returns the new lambdas. ``visits`` is the segment's
+    user-visits (0-d)."""
     theta, phi = tables
     uv, vv, rv = valid
     su, sv, sr = uv[samples], vv[samples], rv[samples]
     old_t, old_p = theta[su], phi[sv]
-    segment = adreg_segment_reference if reference else adreg_segment
-    segment(theta, phi, plan, b0, b1, eta, lams, gb, dim, theta_groups,
-            phi_groups, work, loss)
+    if reference:
+        adreg_segment_reference(theta, phi, plan, b0, b1, eta, lams, gb, dim,
+                                theta_groups, phi_groups, work, loss)
+    else:
+        adreg_segment(theta, phi, plan, b0, b1, eta, lams, gb, dim,
+                      theta_groups, phi_groups, work, loss, walk)
     return hypergrad_ext_rows(theta[su], phi[sv], old_t, old_p, sr, lams, eta,
                               eta_reg, visits, gb, dim, loss)
 
@@ -251,6 +289,7 @@ class AdRegRunner:
                             np.asarray(valid_ds.r, np.float32))
         self._valid: Optional[Valid] = None
         self._visits: list = []
+        self.walks: list = []  # per plan, its segments' DeviceWalk
         self.lams: Optional[torch.Tensor] = None
 
     def seg_len(self, idx: int = 0) -> int:
@@ -259,19 +298,25 @@ class AdRegRunner:
 
     def materialize(self) -> "AdRegRunner":
         """Upload the plans as padded window plans, their per-segment
-        user-visits and the validation set to the runner's device
-        (once)."""
+        user-visits, their segments' tile walks (``segment_walks`` at one
+        column a window, the 8/8 groups) and the validation set to the
+        runner's device (once)."""
         if not self._dev:
             dev = self.device
+            p = self.plans[0]
+            counters = TileWalkCounters(p.n_gv, p.n_gu, dev)
             for idx, plan in enumerate(self.plans):
+                n = self.seg_len(idx)
                 wp = pad_plan_nb(self._window_plan(plan),
-                                 self._segs[idx] * self.seg_len(idx))
+                                 self._segs[idx] * n)
                 nb = wp.u.shape[0]
                 visits = distinct_counts(wp.u.reshape(nb, -1),
                                          wp.w.reshape(nb, -1) > 0)
                 self._visits.append(torch.as_tensor(
                     visits.reshape(self._segs[idx], -1).sum(1)).to(dev))
                 self._dev.append(upload_plan(wp, dev))
+                self.walks.append(upload_walk(
+                    segment_walks(wp, n, self._segs[idx]), counters))
             self._valid = tuple(torch.as_tensor(x).to(dev)
                                 for x in self._valid_host)
         return self
@@ -292,16 +337,26 @@ class AdRegRunner:
         return torch.randint(len(self._valid_host[0]), (N_REG_SAMPLES,),
                              generator=gen, device=self.device)
 
+    def route(self, epoch_idx: int = 0) -> str:
+        """The walk the kernel takes on plan ``epoch_idx``'s segments
+        (``tile_walk_route``)."""
+        return self.materialize().walks[epoch_idx % len(self.plans)].route
+
     def epoch(self, tables, eta: float, eta_reg: float, key: int,
-              epoch_idx: int = 0, samples=None, reference: bool = False):
+              epoch_idx: int = 0, samples=None, reference: bool = False,
+              walk: str | None = None):
         """One epoch in place on the fused tables (returns them): per
         segment ``adreg_segment_step``; ``epoch_idx`` rotates the plans.
         The validation indices come from ``draw_samples(key, s)``, or from
         ``samples`` ((segments, K) indices) when given. ``reference`` runs
         the plain version on the runner's device (to hold the kernel to it
-        on the card)."""
+        on the card); ``walk`` forces "tile" or "grid" (default: the
+        plan's ``route``)."""
         idx = epoch_idx % len(self.plans)
         plan = self.materialize()._dev[idx]
+        dwalk = self.walks[idx]
+        if pick_walk(dwalk, walk) == "grid":
+            dwalk = None
         tg, pg = self.pick_theta_groups(eta), self.pick_phi_groups(eta)
         if samples is not None:
             samples = torch.as_tensor(samples).to(self.device, torch.int64)
@@ -313,7 +368,7 @@ class AdRegRunner:
             self.lams = adreg_segment_step(
                 tables, self.lams, plan, s * n, (s + 1) * n, self._valid, ks,
                 eta, eta_reg, self._visits[idx][s], self.gb, self.dim, tg, pg,
-                self.work_dtype, self.loss, reference)
+                self.work_dtype, self.loss, reference, dwalk)
         type(self).launches += adreg_segment.launches - launched
         return tables
 

@@ -40,8 +40,11 @@ result. The plain version also takes a normals source, called per (batch,
 side, column) with the tile's rows, so that tests can feed it what another
 generator gave.
 
-``sgld_cell_epoch`` launches ``csrc/sgld_cells.cu`` on CUDA tensors and
-runs ``sgld_cell_epoch_reference`` on CPU tensors; ``SgldCellRunner`` is the
+``sgld_cell_epoch`` launches ``csrc/sgld_cells.cu`` on CUDA tensors, on
+the walk ``ops/tile_walk.py: tile_walk_route`` picks for the plan (the
+tile walk: units of columns on one user tile, one thread-block cluster
+each, ordered by ready counters per tile; or the grid walk), and runs
+``sgld_cell_epoch_reference`` on CPU tensors; ``SgldCellRunner`` is the
 counterpart of ``PallasSgldRunner``.
 """
 
@@ -63,6 +66,16 @@ from tpu_mf_torch.ops.sgd_cells import (
     DevicePlan,
     prepare_cells,
     upload_plan,
+)
+from tpu_mf_torch.ops.tile_walk import (
+    WALKS,
+    DeviceWalk,
+    TileWalkCounters,
+    item_noise_ranges,
+    pick_walk,
+    plan_tile_walk,
+    upload_walk,
+    walk_launch,
 )
 
 # per-round counts below 2^31: the plans' touch-list offsets are int32
@@ -170,9 +183,10 @@ def _scalars(hyper: Hyper, dev):
 
 class SgldCellPlan(NamedTuple):
     """A gen-1 plan on a device for SGLD rounds: the window-plan columns,
-    the END-of-batch clock (cumulative real ratings, int64) and, per batch,
-    the distinct touched rows (tile-local user rows, table item rows) the
-    kernel injects noise into."""
+    the END-of-batch clock (cumulative real ratings, int64), per batch the
+    distinct touched rows (tile-local user rows, table item rows) the
+    kernel injects noise into, and the round's tile walk (with the item
+    touch list split by tile, ``item_noise_ranges``)."""
 
     cells: DevicePlan
     cum: torch.Tensor      # (NB,) int64
@@ -181,6 +195,7 @@ class SgldCellPlan(NamedTuple):
     tu_ids: torch.Tensor   # int32 tile-local user rows
     tv_off: torch.Tensor   # (NB + 1,) int32
     tv_ids: torch.Tensor   # int32 item table rows
+    walk: DeviceWalk
 
 
 def _touch_lists(plan: CellPlan) -> Tuple[np.ndarray, ...]:
@@ -275,11 +290,19 @@ def sgld_cell_epoch_reference(theta, phi, stamp_u, stamp_v, invf_u, invf_v,
 
 
 def _sgld_lib() -> ctypes.CDLL:
-    lib = _build.load("sgld_cells")
+    return bind_sgld_lib(_build.load("sgld_cells"))
+
+
+def bind_sgld_lib(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """``lib``, a build of ``csrc/sgld_cells.cu``, with its entry points'
+    argument types set."""
     fn = lib.tmf_sgld_epoch
     fn.argtypes = ([ctypes.c_void_p] * 22 + [ctypes.c_longlong]
                    + [ctypes.c_int] * 14 + [ctypes.c_float] * 5
-                   + [ctypes.c_void_p])
+                   + [ctypes.c_void_p] * 2)
+    fn.restype = ctypes.c_int
+    fn = lib.tmf_sgld_walk_clusters
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
     fn.restype = ctypes.c_int
     return lib
 
@@ -289,11 +312,13 @@ _WORK = {torch.float32: 0, torch.bfloat16: 1}
 
 def launch_sgld(tables, invf, lam, cells: DevicePlan, cum, clock0: int,
                 hyper: Hyper, dim: int, noise_seed: int, work: torch.dtype,
-                touch=None, ring=None, ap=None, slot=None) -> None:
+                touch=None, ring=None, ap=None, slot=None,
+                walk: DeviceWalk | None = None) -> None:
     """One launch of ``csrc/sgld_cells.cu`` on CUDA tensors: the gen-1 mode
     with ``touch`` lists, or the slot mode with ``ring``, ``ap`` flags and
-    ``slot = (pack, noise_every, cap)`` (slot windows always saturate).
-    Checks devices, types and shapes, and raises if the launch fails."""
+    ``slot = (pack, noise_every, cap)`` (slot windows always saturate); on
+    the tile walk of ``walk``, or the grid walk when it is None. Checks
+    devices, types and shapes, and raises if the launch fails."""
     theta, phi, stamp_u, stamp_v = tables
     dev = theta.device
     if work not in _WORK:
@@ -340,11 +365,20 @@ def launch_sgld(tables, invf, lam, cells: DevicePlan, cum, clock0: int,
             raise ValueError("sgld kernel: the noise ring is too small")
         nq_u, nq_v = ring_slices(n_ring, tu), ring_slices(n_ring, tv)
     scal, gb, eb, te = (float(x) for x in _scalars(hyper, "cpu"))
-    d_theta = torch.zeros(tu, lanes, dtype=torch.float32, device=dev)
     acc = torch.zeros_like(phi)
     lib = _sgld_lib()
     seed32 = ((noise_seed & _MASK) ^ 0x80000000) - 0x80000000
     with torch.cuda.device(dev):
+        launch = None
+        if walk is None:
+            d_theta = torch.zeros(tu, lanes, dtype=torch.float32, device=dev)
+        else:
+            mode = int(slot is not None)
+            launch, d_theta = walk_launch(
+                walk, 0, nb, 1 if mode else None, ("sgld", _WORK[work], mode),
+                lambda c, out: lib.tmf_sgld_walk_clusters(_WORK[work], mode,
+                                                          c, out),
+                tu, lanes, dev)
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.tmf_sgld_epoch(
             theta.data_ptr(), phi.data_ptr(), stamp_u.data_ptr(),
@@ -358,9 +392,12 @@ def launch_sgld(tables, invf, lam, cells: DevicePlan, cum, clock0: int,
             d_theta.data_ptr(), acc.data_ptr(), clock0,
             nb, col, tu, tv, lanes, dim, _WORK[work], int(slot is not None),
             pack, n_ring, nq_u, nq_v, noise_every, seed32,
-            scal, gb, eb, te, cap, stream)
+            scal, gb, eb, te, cap,
+            None if launch is None else ctypes.addressof(launch), stream)
     if rc != 0:
         raise RuntimeError(f"sgld_cells kernel launch failed: CUDA error {rc}")
+    if launch is not None:
+        walk.counters.advance(launch.n_units, launch.n_clusters)
 
 
 def ring_slices(n_ring: int, tile: int) -> int:
@@ -371,10 +408,12 @@ def ring_slices(n_ring: int, tile: int) -> int:
 
 def sgld_cell_epoch(theta, phi, stamp_u, stamp_v, invf_u, invf_v, lam,
                     plan: SgldCellPlan, clock0: int, hyper: Hyper, dim: int,
-                    noise_seed: int, work: torch.dtype = torch.bfloat16) -> None:
+                    noise_seed: int, work: torch.dtype = torch.bfloat16,
+                    walk: str | None = None) -> None:
     """One SGLD round on a gen-1 plan, in place on the fused tables and
     stamps. CPU tensors take the plain version; CUDA tensors launch
-    ``csrc/sgld_cells.cu`` (one cooperative launch per round) or raise."""
+    ``csrc/sgld_cells.cu`` (one launch per round) or raise, on the walk
+    ``walk`` forces ("tile" or "grid"; default: the plan's route)."""
     if theta.device.type == "cpu":
         sgld_cell_epoch_reference(theta, phi, stamp_u, stamp_v, invf_u,
                                   invf_v, lam, plan, clock0, hyper, dim,
@@ -382,13 +421,17 @@ def sgld_cell_epoch(theta, phi, stamp_u, stamp_v, invf_u, invf_v, lam,
         return
     if theta.device.type != "cuda":
         raise ValueError(f"sgld_cell_epoch: no kernel for {theta.device}")
+    route = pick_walk(plan.walk, walk)
     launch_sgld((theta, phi, stamp_u, stamp_v), (invf_u, invf_v), lam,
                 plan.cells, plan.cum, clock0, hyper, dim, noise_seed, work,
-                touch=(plan.tu_off, plan.tu_ids, plan.tv_off, plan.tv_ids))
+                touch=(plan.tu_off, plan.tu_ids, plan.tv_off, plan.tv_ids),
+                walk=plan.walk if route == "tile" else None)
     sgld_cell_epoch.launches += 1
+    sgld_cell_epoch.walks[route] += 1
 
 
 sgld_cell_epoch.launches = 0  # kernel launches (CUDA calls), not CPU runs
+sgld_cell_epoch.walks = dict.fromkeys(WALKS, 0)  # the launches by walk
 
 
 class SgldRunner:
@@ -422,9 +465,18 @@ class SgldRunner:
         raise NotImplementedError
 
     def materialize(self) -> "SgldRunner":
+        """Upload the plans and their tile walks, which share one set of
+        hand-off counters (once)."""
         if not self._dev:
+            self._counters = TileWalkCounters(self.plan.n_gv, self.plan.n_gu,
+                                              self.device)
             self._dev = [self._upload(i) for i in range(len(self.plans))]
         return self
+
+    def route(self, epoch_idx: int = 0) -> str:
+        """The walk the kernel takes on plan ``epoch_idx``
+        (``tile_walk_route``)."""
+        return self.materialize()._dev[epoch_idx % len(self._dev)].walk.route
 
     def _rows(self, idmap, n):
         if idmap is None:
@@ -517,19 +569,24 @@ class SgldCellRunner(SgldRunner):
 
     def _upload(self, idx: int) -> SgldCellPlan:
         plan, cum = self.plans[idx], self.cum_bases[idx]
-        touch = [torch.as_tensor(a).to(self.device)
-                 for a in _touch_lists(plan)]
+        lists = _touch_lists(plan)
+        walk = plan_tile_walk(plan, 0, plan.u.shape[0])
+        nz = item_noise_ranges(walk, lists[2], lists[3], plan.tile_v,
+                               plan.n_gv)
+        touch = [torch.as_tensor(a).to(self.device) for a in lists]
         return SgldCellPlan(upload_plan(plan, self.device),
-                            torch.as_tensor(cum).to(self.device), cum, *touch)
+                            torch.as_tensor(cum).to(self.device), cum, *touch,
+                            upload_walk(walk, self._counters, nz=nz))
 
     def epoch(self, tables, state_gcount: int, hyper: Hyper,
-              noise_seed: int, epoch_idx: int = 0):
+              noise_seed: int, epoch_idx: int = 0, walk: str | None = None):
         """One round in place on the tables; ``hyper`` = (eta, temp, bound,
-        scal, gb). ``epoch_idx`` rotates the plans."""
+        scal, gb). ``epoch_idx`` rotates the plans; ``walk`` forces "tile"
+        or "grid" (default: the plan's route)."""
         plan = self.materialize()._dev[epoch_idx % len(self._dev)]
         launched = sgld_cell_epoch.launches
         sgld_cell_epoch(*tables, *self.invf, self.lam, plan,
                         int(state_gcount), hyper, self.dim, noise_seed,
-                        self.work_dtype)
+                        self.work_dtype, walk)
         type(self).launches += sgld_cell_epoch.launches - launched
         return tables

@@ -69,6 +69,14 @@ from tpu_mf_torch.ops.sgld_cells import (
     launch_sgld,
     ring_slices,
 )
+from tpu_mf_torch.ops.tile_walk import (
+    WALKS,
+    DeviceWalk,
+    pick_walk,
+    plan_tile_walk,
+    tile_apply_flags,
+    upload_walk,
+)
 
 
 def sgld_slot_pack(dim: int) -> int:
@@ -129,14 +137,16 @@ def ring_noise(ring: torch.Tensor, q: int, tile: int, pack: int, dim: int,
 
 class SlotSgldPlan(NamedTuple):
     """A slot plan on a device as window-plan columns, with its
-    batch-START clock (int64) and apply flags: 1 at a tile's last touching
-    column, 2 there on noise batches."""
+    batch-START clock (int64), apply flags (1 at a tile's last touching
+    column, 2 there on noise batches) and its tile walk (a window is a
+    batch; the walk's flags are those of the real columns)."""
 
     cells: DevicePlan
     cum: torch.Tensor     # (NB,) int64
     cum_host: np.ndarray
     ap: torch.Tensor      # (NB, 8) int32
     ap_host: np.ndarray
+    walk: DeviceWalk
 
 
 def sgld_slot_epoch_reference(theta, phi, stamp_u, stamp_v, invf_u, invf_v,
@@ -208,11 +218,13 @@ def sgld_slot_epoch(theta, phi, stamp_u, stamp_v, invf_u, invf_v, lam,
                     plan: SlotSgldPlan, clock0: int, hyper: Hyper, dim: int,
                     noise_seed: int, ring: torch.Tensor, pack: int,
                     noise_every: int, cap: float,
-                    work: torch.dtype = torch.bfloat16) -> None:
+                    work: torch.dtype = torch.bfloat16,
+                    walk: str | None = None) -> None:
     """One SGLD round on a slot plan, in place on the fused tables and
     stamps. CPU tensors take the plain version; CUDA tensors launch
-    ``csrc/sgld_cells.cu``'s slot mode (one cooperative launch per round)
-    or raise."""
+    ``csrc/sgld_cells.cu``'s slot mode (one launch per round) or raise, on
+    the walk ``walk`` forces ("tile" or "grid"; default: the plan's
+    route)."""
     args = (theta, phi, stamp_u, stamp_v, invf_u, invf_v, lam, plan, clock0,
             hyper, dim, noise_seed, ring, pack, noise_every, cap, work)
     if theta.device.type == "cpu":
@@ -220,14 +232,17 @@ def sgld_slot_epoch(theta, phi, stamp_u, stamp_v, invf_u, invf_v, lam,
         return
     if theta.device.type != "cuda":
         raise ValueError(f"sgld_slot_epoch: no kernel for {theta.device}")
+    route = pick_walk(plan.walk, walk)
     launch_sgld((theta, phi, stamp_u, stamp_v), (invf_u, invf_v), lam,
                 plan.cells, plan.cum, clock0, hyper, dim, noise_seed, work,
-                ring=ring, ap=plan.ap,
-                slot=(pack, noise_every, cap))
+                ring=ring, ap=plan.ap, slot=(pack, noise_every, cap),
+                walk=plan.walk if route == "tile" else None)
     sgld_slot_epoch.launches += 1
+    sgld_slot_epoch.walks[route] += 1
 
 
 sgld_slot_epoch.launches = 0  # kernel launches (CUDA calls), not CPU runs
+sgld_slot_epoch.walks = dict.fromkeys(WALKS, 0)  # the launches by walk
 
 
 class SlotSgldRunner(SgldRunner):
@@ -288,16 +303,21 @@ class SlotSgldRunner(SgldRunner):
         ap = (flags + flags * noisy[:, None]).astype(np.int32)
         real = (plan.u != plan.tile_u // self.pack).reshape(nb, -1).sum(1)
         cum = np.concatenate([[0], np.cumsum(real)[:-1]]).astype(np.int64)
+        wp = to_window_plan(plan, self.striped)
+        walk = plan_tile_walk(wp, 0, nb, 8)
+        tap = tile_apply_flags(walk.col_tile, 1) * (1 + noisy[:, None])
         return SlotSgldPlan(
-            upload_plan(to_window_plan(plan, self.striped), self.device),
+            upload_plan(wp, self.device),
             torch.as_tensor(cum).to(self.device), cum,
-            torch.as_tensor(ap).to(self.device), ap)
+            torch.as_tensor(ap).to(self.device), ap,
+            upload_walk(walk, self._counters, tap={1: tap}))
 
     def epoch(self, tables, state_gcount: int, hyper: Hyper,
               noise_seed: int, epoch_idx: int = 0,
-              ring: torch.Tensor | None = None):
+              ring: torch.Tensor | None = None, walk: str | None = None):
         """One round in place on the tables; ``hyper`` = (eta, temp, bound,
-        scal, gb). The ring is drawn from ``noise_seed`` unless given."""
+        scal, gb). The ring is drawn from ``noise_seed`` unless given;
+        ``walk`` forces "tile" or "grid" (default: the plan's route)."""
         plan = self.materialize()._dev[epoch_idx % len(self._dev)]
         if ring is None:
             ring = slot_ring(noise_seed, self.tile_u, self.tile_v,
@@ -307,6 +327,6 @@ class SlotSgldRunner(SgldRunner):
         sgld_slot_epoch(*tables, *self.invf, self.lam, plan,
                         int(state_gcount), hyper, self.dim, noise_seed, ring,
                         self.pack, self.noise_every, cap,
-                        self.work_dtype)
+                        self.work_dtype, walk)
         type(self).launches += sgld_slot_epoch.launches - launched
         return tables

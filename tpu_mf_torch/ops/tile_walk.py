@@ -1,0 +1,410 @@
+"""The tile walk of the window-plan kernels ``csrc/adreg_cells.cu`` and
+``csrc/sgld_cells.cu``: the host planner, the hand-off counters and the
+route between the tile walk and the grid walk.
+
+A window plan's batches are sorted by user tile, and one window (a step of
+``window`` columns of one batch) reads and writes only its user tile and
+the item tiles of its columns. So a window depends on two kinds of earlier
+windows: the last one on its user tile and, per item tile it touches, the
+last one on that item tile. The grid walk runs the windows one after
+another, each ending in two grid syncs. The tile walk runs **units**, the
+maximal runs of consecutive real columns on one user tile (columns without
+a real slot, w = 0 in every slot, are dropped: they change nothing), each
+on one thread-block cluster, and orders them by ready counters:
+
+- units are taken by an atomic ticket in plan order, so a unit waits only
+  on units already running or done;
+- before its first column on a tile (its user tile at its start, an item
+  tile at its first touch), a unit waits until the tile's counter shows that
+  every earlier unit of the launch on that tile has released it;
+- after its last apply of a tile, it releases the tile.
+
+Counters are never cleared. A launch has a generation number ``gen``; the
+unit that holds the w-th wait on a tile (w earlier units of the launch
+touch it) waits for the value ``gen << 32 | w`` and releases with
+``gen << 32 | (w + 1)``, a store (no other unit writes the tile's counter
+meanwhile). A unit with w = 0 does not wait: the launches before it on the
+stream have ended. A value from another launch never equals the awaited one
+unless 2^32 launches lie between them. The ticket is a 32-bit counter that a
+launch advances by its units plus its clusters (each cluster draws one
+ticket past the last unit); both numbers wrap unsigned.
+
+``plan_tile_walk`` builds a plan's walk once per plan and launch range (at
+``materialize``), ``cluster_size`` sizes its clusters by the slots of a
+window, ``tile_walk_route`` picks the walk by a model of both walks' time,
+and ``TileWalkCounters`` numbers the launches on one device.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+
+# the walks of csrc/adreg_cells.cu and csrc/sgld_cells.cu
+WALKS = ("tile", "grid")
+# blocks per thread-block cluster: one unit's window steps spread over this
+# many SMs. 8 (the portable most; 16 clusters fit an H100 at once) where a
+# window holds at most WIDE_SLOTS slots, 16 (8 clusters) past that: at
+# ML-10M shape clusters of 8 ran the gen-1 walks (windows of 512 and 1,024
+# slots) faster than clusters of 4 or 16, and clusters of 16 the slot
+# plans' (3,584 and 28,672) faster than clusters of 8 (PERF.md)
+CLUSTER, WIDE_CLUSTER = 8, 16
+WIDE_SLOTS = 4 * 32 * CLUSTER  # four rounds of a warp's slots at CLUSTER
+# the grid walk's blocks: one per SM of an H100 SXM
+H100_SMS = 132
+# a window step's fixed cost (waits or grid syncs, barriers, slot and row
+# loads), in rounds of a warp's slots, on each walk (the ML-10M runs of
+# both walks, PERF.md)
+TILE_STEP_ROUNDS, GRID_STEP_ROUNDS = 7, 3
+
+
+class TileWalk(NamedTuple):
+    """The tile walk of one launch range of a window plan (host arrays).
+
+    Columns are numbered i * 8 + k over the whole plan; the ``col_*``
+    arrays cover every column of the plan, so segments of one plan share
+    them."""
+
+    unit_c0: np.ndarray    # (n_units,) int32 first real column of the unit
+    unit_c1: np.ndarray    # (n_units,) int32 one past its last real column
+    unit_gu: np.ndarray    # (n_units,) int32 its user tile
+    unit_wait: np.ndarray  # (n_units,) int32 earlier units on its user tile
+    col_tile: np.ndarray   # (nb * 8,) int32 item tile of a real column, -1
+    col_wait: np.ndarray   # (nb * 8,) int32 wait value at a unit's first
+    #                        touch of the column's item tile, else -1
+    col_rel: np.ndarray    # (nb * 8,) int32 wait value + 1 at a unit's last
+    #                        touch of the column's item tile, else 0
+    window: int            # columns per window step
+    slots: int             # rating slots of a window (window x column)
+    n_windows: int         # windows of the range that hold a real column
+    crit: int              # windows on the critical path
+    b0: int
+    b1: int
+
+    @property
+    def n_units(self) -> int:
+        return int(self.unit_c0.shape[0])
+
+
+def real_columns(w: np.ndarray) -> np.ndarray:
+    """(nb * 8,) bool: columns of a window plan (host w of (nb, sub, 8))
+    with at least one real slot."""
+    return (w > 0).any(axis=1).reshape(-1)
+
+
+def plan_tile_walk(plan, b0: int, b1: int, window: int = 1) -> TileWalk:
+    """The tile walk of the plan batches [b0, b1) of a window plan (a
+    ``CellPlan``: host u/v/w of (nb, sub, 8), gu (nb,), gv (nb, 8)) at
+    ``window`` columns per window step (theta and phi groups of that
+    width): units, per unit and item tile the first and last touching
+    column with the wait value and its release, and the critical path in
+    windows."""
+    if window not in (1, 2, 4, 8):
+        raise ValueError(f"window must divide the 8 columns, got {window}")
+    nb = plan.gu.shape[0]
+    if not 0 <= b0 <= b1 <= nb:
+        raise ValueError(f"batches [{b0}, {b1}) outside the plan's {nb}")
+    real = real_columns(plan.w)
+    gv = plan.gv.reshape(-1).astype(np.int64)
+    col_tile = np.where(real, gv, -1).astype(np.int32)
+    col_wait = np.full(nb * 8, -1, np.int32)
+    col_rel = np.zeros(nb * 8, np.int32)
+    cols = np.flatnonzero(real[b0 * 8:b1 * 8]) + b0 * 8
+    gu_col = plan.gu[cols // 8].astype(np.int64)
+    # units: maximal runs of consecutive real columns on one user tile
+    starts = np.flatnonzero(np.r_[True, gu_col[1:] != gu_col[:-1]]) \
+        if len(cols) else np.zeros(0, np.int64)
+    ends = np.r_[starts[1:], len(cols)].astype(np.int64)
+    unit_gu = gu_col[starts] if len(cols) else np.zeros(0, np.int64)
+    unit_c0 = cols[starts] if len(cols) else np.zeros(0, np.int64)
+    unit_c1 = cols[ends - 1] + 1 if len(cols) else np.zeros(0, np.int64)
+    units_on_u: dict = {}
+    units_on_v: dict = {}
+    unit_wait = np.zeros(len(starts), np.int32)
+    # the critical path: depth of a window = 1 + the depths it waits on
+    # (the unit's previous window, the release windows of the units before
+    # it on its user tile and on each item tile it first touches)
+    rel_u: dict = {}  # user tile -> depth of the last release
+    rel_v: dict = {}  # item tile -> depth of the last release
+    crit = n_windows = 0
+    for n, (s, e) in enumerate(zip(starts, ends)):
+        g = int(unit_gu[n])
+        unit_wait[n] = units_on_u.get(g, 0)
+        units_on_u[g] = unit_wait[n] + 1
+        ucols = cols[s:e]
+        tiles = gv[ucols]
+        first: dict = {}
+        last: dict = {}
+        for c, v in zip(ucols.tolist(), tiles.tolist()):
+            first.setdefault(v, c)
+            last[v] = c
+        for v, c in first.items():
+            col_wait[c] = units_on_v.get(v, 0)
+        for v, c in last.items():
+            col_rel[c] = col_wait[first[v]] + 1
+            units_on_v[v] = col_wait[first[v]] + 1
+        # windows of the unit, in order; a window waits on the unit's
+        # previous window and on the tiles it touches first
+        depth = rel_u.get(g, 0)
+        win = ucols // window
+        wstart = np.flatnonzero(np.r_[True, win[1:] != win[:-1]])
+        wend = np.r_[wstart[1:], len(ucols)]
+        for a, b in zip(wstart.tolist(), wend.tolist()):
+            wt = set(tiles[a:b].tolist())
+            dep = depth
+            for v in wt:
+                if first[v] in ucols[a:b]:
+                    dep = max(dep, rel_v.get(v, 0))
+            depth = dep + 1
+            for v in wt:
+                if last[v] in ucols[a:b]:
+                    rel_v[v] = depth
+        rel_u[g] = depth
+        n_windows += len(wstart)
+        crit = max(crit, depth)
+    return TileWalk(unit_c0.astype(np.int32), unit_c1.astype(np.int32),
+                    unit_gu.astype(np.int32), unit_wait, col_tile, col_wait,
+                    col_rel, window, window * plan.w.shape[1], n_windows,
+                    crit, b0, b1)
+
+
+def tile_apply_flags(col_tile: np.ndarray, groups: int) -> np.ndarray:
+    """(nb, 8) int32: 1 where a real column is the last REAL column of its
+    phi group (of ``8 // groups`` columns) on its item tile, the tile
+    walk's deferred-apply point; ``_apply_flags`` of ``ops/sgd_cells.py``
+    with the columns that hold no real slot left out."""
+    w = 8 // groups
+    ct = col_tile.reshape(-1, 8)
+    flags = (ct >= 0).astype(np.int32)
+    for g0 in range(0, 8, w):
+        for j in range(g0, g0 + w - 1):
+            later = (ct[:, j + 1:g0 + w] == ct[:, j:j + 1]).any(1)
+            flags[:, j] &= (~later).astype(np.int32)
+    return flags
+
+
+def item_noise_ranges(walk: TileWalk, tv_off: np.ndarray, tv_ids: np.ndarray,
+                      tile_v: int, n_gv: int):
+    """(nz_lo, nz_hi), (nb * 8,) int32 each: for the first real column of
+    batch i on item tile v, the range of batch i's item touch list
+    (``tv_ids[tv_off[i]:tv_off[i + 1]]``, table rows sorted within the
+    batch) that lies on tile v; empty (0, 0) at every other column. The
+    gen-1 SGLD walk injects a batch's item noise tile by tile, there."""
+    nb = tv_off.shape[0] - 1
+    batch = np.repeat(np.arange(nb, dtype=np.int64), np.diff(tv_off))
+    keys = batch * n_gv + tv_ids.astype(np.int64) // tile_v
+    ct = walk.col_tile.reshape(nb, 8).astype(np.int64)
+    first = ct >= 0
+    for k in range(1, 8):
+        first[:, k] &= ~(ct[:, :k] == ct[:, k:k + 1]).any(1)
+    want = np.arange(nb, dtype=np.int64)[:, None] * n_gv + ct
+    lo = np.searchsorted(keys, want, "left")
+    hi = np.searchsorted(keys, want, "right")
+    return (np.where(first, lo, 0).astype(np.int32).reshape(-1),
+            np.where(first, hi, 0).astype(np.int32).reshape(-1))
+
+
+def segment_walks(plan, seg_len: int, n_seg: int,
+                  window: int = 1) -> list:
+    """``plan_tile_walk`` of each of ``n_seg`` launch ranges of ``seg_len``
+    batches (an AdaptReg plan's segments; one range for an SGLD round)."""
+    return [plan_tile_walk(plan, s * seg_len, (s + 1) * seg_len, window)
+            for s in range(n_seg)]
+
+
+def cluster_size(walks) -> int:
+    """The blocks of a cluster for a plan's tile walk (``walks``: a
+    ``TileWalk`` or a list of them): ``CLUSTER``, or ``WIDE_CLUSTER`` where
+    a window holds more than ``WIDE_SLOTS`` slots."""
+    if isinstance(walks, TileWalk):
+        walks = [walks]
+    return WIDE_CLUSTER if max(w.slots for w in walks) > WIDE_SLOTS \
+        else CLUSTER
+
+
+def tile_walk_route(walks, cluster: int | None = None,
+                    sms: int = H100_SMS) -> str:
+    """The walk a plan takes on the card, by a model of each walk's time
+    in rounds of a warp's slots: the tile walk runs the critical path's
+    windows one after another, each a fixed ``TILE_STEP_ROUNDS`` plus its
+    slots over the 32 warps of each of a cluster's ``cluster`` blocks; the
+    grid walk runs every window, each ``GRID_STEP_ROUNDS`` plus its slots
+    over one block of 32 warps on each of ``sms`` SMs. "tile" where the
+    first is the shorter, else "grid"; summed over the launch ranges of
+    ``walks`` (a ``TileWalk`` or a list of them). At ML-10M shape the
+    gen-1 plans' chains shrink 8-16x and the tile walk wins ~4.6x; a slot
+    SGLD window of 28,672 slots keeps a cluster of 16 busy for 56 rounds,
+    and the grid walk wins. ``cluster`` defaults to ``cluster_size``."""
+    if isinstance(walks, TileWalk):
+        walks = [walks]
+    warps = 32 * (cluster or cluster_size(walks))
+    tile = sum(w.crit * (TILE_STEP_ROUNDS + -(-w.slots // warps))
+               for w in walks)
+    grid = sum(w.n_windows * (GRID_STEP_ROUNDS + -(-w.slots // (32 * sms)))
+               for w in walks)
+    return "tile" if tile < grid else "grid"
+
+
+class DeviceWalk(NamedTuple):
+    """A plan's tile walks (one per launch range) on a device, with what
+    the kernels read beside them: the apply flags of the real columns
+    (``tile_apply_flags``) per phi groups, or the slot SGLD flags; the
+    gen-1 SGLD item noise ranges. The ranges' units are concatenated
+    (launch s takes units [unit_off[s], unit_off[s + 1])); their column
+    arrays cover disjoint columns and are merged."""
+
+    unit_c0: torch.Tensor
+    unit_c1: torch.Tensor
+    unit_gu: torch.Tensor
+    unit_wait: torch.Tensor
+    col_tile: torch.Tensor
+    col_wait: torch.Tensor
+    col_rel: torch.Tensor
+    tap: dict                      # {groups: (nb, 8) int32}
+    nz: Optional[tuple]            # (nz_lo, nz_hi) or None
+    walks: list                    # the host TileWalks
+    unit_off: list                 # host offsets of each range's units
+    cluster: int                   # blocks per cluster (cluster_size)
+    route: str
+    counters: "TileWalkCounters"   # shared by the runner's plans
+
+    def range_of(self, b0: int, b1: int) -> int:
+        """The index of the launch range [b0, b1)."""
+        for s, w in enumerate(self.walks):
+            if (w.b0, w.b1) == (b0, b1):
+                return s
+        raise ValueError(f"no tile walk for batches [{b0}, {b1})")
+
+
+def upload_walk(walks, counters: "TileWalkCounters", tap: dict | None = None,
+                nz=None) -> DeviceWalk:
+    """The ``TileWalk``s of one plan (a list, or one) on the device of
+    ``counters``, routed for that device's SMs (an H100's on the CPU);
+    ``tap`` defaults to the real columns' apply flags at every phi
+    grouping."""
+    device = counters.counters.device
+    sms = (torch.cuda.get_device_properties(device).multi_processor_count
+           if device.type == "cuda" else H100_SMS)
+    if isinstance(walks, TileWalk):
+        walks = [walks]
+    first = walks[0]
+    if tap is None:
+        tap = {g: tile_apply_flags(first.col_tile, g) for g in (1, 2, 4, 8)}
+
+    def dev(a):  # the kernels read int32
+        return torch.as_tensor(np.ascontiguousarray(a, np.int32)).to(device)
+
+    def cat(name):
+        return dev(np.concatenate([getattr(w, name) for w in walks]))
+
+    col_wait = np.maximum.reduce([w.col_wait for w in walks])
+    col_rel = np.maximum.reduce([w.col_rel for w in walks])
+    off = np.concatenate([[0], np.cumsum([w.n_units for w in walks])])
+    return DeviceWalk(
+        cat("unit_c0"), cat("unit_c1"), cat("unit_gu"), cat("unit_wait"),
+        dev(first.col_tile), dev(col_wait), dev(col_rel),
+        {g: dev(a) for g, a in tap.items()},
+        None if nz is None else tuple(dev(a) for a in nz), list(walks),
+        [int(x) for x in off], cluster_size(walks),
+        tile_walk_route(walks, sms=sms), counters)
+
+
+class TileWalkCounters:
+    """The tile walk's hand-off state on one device: a 64-bit ready counter
+    per tile (``n_gv`` item tiles, then ``n_gu`` user tiles) and the unit
+    ticket (the low 32 bits of one more 64-bit word). Nothing is cleared
+    between launches: each launch takes the next generation (``gen``, a
+    32-bit number) and starts its tickets at ``ticket_base``; ``advance``
+    moves both past it, modulo 2^32 as the kernel's unsigned counters
+    wrap."""
+
+    def __init__(self, n_gv: int, n_gu: int, device):
+        self.n_gv, self.n_gu = n_gv, n_gu
+        self.counters = torch.zeros(n_gv + n_gu + 1, dtype=torch.int64,
+                                    device=device)
+        self.gen = 1
+        self.ticket_base = 0
+
+    def advance(self, n_units: int, n_clusters: int) -> None:
+        self.gen = (self.gen + 1) % 2 ** 32
+        self.ticket_base = (self.ticket_base + n_units + n_clusters) % 2 ** 32
+
+
+class WalkLaunch(ctypes.Structure):
+    """``tile_walk::WalkLaunch`` of ``csrc/tile_walk.cuh``, field for
+    field."""
+
+    _fields_ = ([(name, ctypes.c_void_p) for name in (
+        "counters", "ticket", "dtheta", "unit_c0", "unit_c1", "unit_gu",
+        "unit_wait", "col_tile", "col_wait", "col_rel", "tap", "nz_lo",
+        "nz_hi")]
+        + [(name, ctypes.c_longlong) for name in (
+            "n_units", "n_gv", "cluster", "n_clusters")]
+        + [(name, ctypes.c_ulonglong) for name in ("ticket_base", "gen")])
+
+
+_resident: dict = {}
+
+
+def resident_clusters(key, cluster: int, query) -> int:
+    """The most clusters of ``cluster`` blocks of a walk kernel the card
+    keeps resident, from ``query(cluster, byref(out))`` (a library's
+    ``*_walk_clusters`` bound to the kernel), cached by ``key``."""
+    key = (*key, cluster, torch.cuda.current_device())
+    if key not in _resident:
+        out = ctypes.c_int(0)
+        rc = query(cluster, ctypes.byref(out))
+        if rc != 0 or out.value < 1:
+            raise RuntimeError(f"tile walk: no cluster of {cluster} blocks "
+                               f"fits (CUDA error {rc})")
+        _resident[key] = out.value
+    return _resident[key]
+
+
+def pick_walk(walk: DeviceWalk, forced: str | None) -> str:
+    """``forced`` ("tile" or "grid"), or the plan's route."""
+    route = forced or walk.route
+    if route not in WALKS:
+        raise ValueError(f"no walk {forced!r}")
+    return route
+
+
+def walk_launch(walk: DeviceWalk, b0: int, b1: int, tap_groups, key, query,
+                tile_u: int, lanes: int, device: torch.device):
+    """(the ``WalkLaunch`` of the range [b0, b1) of ``walk``, the tensors
+    it points into): at most the clusters the card keeps resident
+    (``resident_clusters(key, walk.cluster, query)``) and no more than the
+    range's units, each with a zeroed tile_u x lanes dtheta slice on
+    ``device``, where the walk's counters must lie. ``tap_groups`` picks
+    the apply flags (None: none)."""
+    if walk.counters.counters.device != device:
+        raise ValueError(f"tile walk: the counters are on "
+                         f"{walk.counters.counters.device}, the tables on "
+                         f"{device}")
+    resident = resident_clusters(key, walk.cluster, query)
+    s = walk.range_of(b0, b1)
+    lo, n_units = walk.unit_off[s], walk.walks[s].n_units
+    n_clusters = max(1, min(resident, n_units))
+    cnt = walk.counters
+    dtheta = torch.zeros(n_clusters * tile_u, lanes, dtype=torch.float32,
+                         device=cnt.counters.device)
+    base = cnt.counters.data_ptr()
+
+    def at(t, off=0):
+        return t.data_ptr() + 4 * off
+
+    nz = walk.nz or (None, None)
+    launch = WalkLaunch(
+        base, base + 8 * (cnt.n_gv + cnt.n_gu), dtheta.data_ptr(),
+        at(walk.unit_c0, lo), at(walk.unit_c1, lo), at(walk.unit_gu, lo),
+        at(walk.unit_wait, lo), at(walk.col_tile), at(walk.col_wait),
+        at(walk.col_rel),
+        None if tap_groups is None else at(walk.tap[tap_groups]),
+        None if nz[0] is None else at(nz[0]),
+        None if nz[1] is None else at(nz[1]),
+        n_units, cnt.n_gv, walk.cluster, n_clusters, cnt.ticket_base,
+        cnt.gen)
+    return launch, dtheta
