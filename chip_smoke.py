@@ -52,8 +52,8 @@ results: 3 and 5; 7-10; 12 and 14; 16 and 18:
      final tables must agree with train_mf's, each table's difference must
      be small beside how far training moved it, and the tRMSE must agree;
  10. one full epoch of each phase of that schedule (packed at epoch 1,
-     each slot phase at its first epoch), plain version, kernel, kernel,
-     plain version from the same initial tables, timed with CUDA events
+     each slot phase at its first epoch), plain version, kernel, kernel
+     from the same initial tables, timed with CUDA events
      and held to each other as in phase 9;
  11. the two SGLD kernels, each on both walks (the tile walk and the grid
      walk), against their plain versions on the card, both working types,
@@ -103,25 +103,33 @@ results: 3 and 5; 7-10; 12 and 14; 16 and 18:
      their plain versions on the card, both working types, on 6x6 tiles at
      ML-10M density: mega at pack 1 (dim 64, tiles 512, mxu_pred on) and
      pack 8 (dim 8, tiles 1024), each padded with all-sentinel batches, at
-     8/8 groups and at an eta whose windows span 2+ columns; free at dim 64,
-     tiles 128, groups 8/8, 1/1 and 8/1, saturation on and off, on a plan
-     whose last batch has sentinel columns;
+     8/8 groups and at an eta whose windows span 2+ columns; free on both
+     walks (the tile walk and the grid walk) at dim 64, tiles 128, groups
+     8/8, 1/1, 8/1 and 4/2, saturation on and off, on a plan whose last
+     batch has sentinel columns, with the plan's units, critical path and
+     route;
  20. the mega path: ``MegaEpochRunner`` on the stand-in at dim 64 (pack 1,
      two plans, saturating, bf16), pad, 3 epochs from ``init_mf``'s tables
      at the CLI defaults' eta, trim: the runner's and ``cell_epoch``'s
      launches must rise by one every epoch and no other kernel's, tRMSE
      must fall; then epoch 1 from the same tables, plain version, kernel,
-     kernel, plain version, timed with CUDA events and held as in phase 9;
+     kernel, timed with CUDA events and held as in phase 9;
  21. the free-column path the same way: ``FreeEpochRunner`` at dim 64 (its
      default balance, saturation and picked batch), counted on
-     ``FreeEpochRunner.launches`` and ``free_epoch.launches``; then the same
+     ``FreeEpochRunner.launches`` and ``free_epoch.launches``, every epoch
+     on the walk the route picks; the plans' units, critical paths, cluster
+     sizes and routes; then epoch 1 from the same tables, the plain version
+     once, the grid and the tile walk in turns (grid, tile, tile, grid),
+     timed with CUDA events and each held to the plain version; the tile
+     walk at clusters of 1, 2, 4 and 8 blocks in turns; its clocks per
+     window step by phase (a ``-DTMF_TILE_CLOCKS`` build); then the same
      epoch once more as the one-user-tile window plan on ``cell_sgd.cu``,
      timed and held to the plain version.
 
 Each phase group prints its seconds. The last lines are the kernels' JSON
-summary (time, launches on the main path, bound; for the SGLD and
-AdaptReg kernels the walk the main path took, whose time and error the
-line gives), the card's name and
+summary (time, launches on the main path, bound; for the SGLD, AdaptReg
+and free-column kernels the walk the main path took, whose time and error
+the line gives), the card's name and
 power limit, and {"ok": true, "device": {...}}. Imports nothing of JAX or
 of tpu_mf. Plans are built anew (``TPU_MF_PLAN_CACHE=0``): nothing is
 written outside the checkout.
@@ -201,9 +209,15 @@ LAM_AD, ETA_AD, ETA_REG_AD = 0.05, 0.002, 0.01
 LAM_REL = 1e-2
 KERNELS = ("dense_cell", "cell_sgd", "sgld_cells", "adreg_cells",
            "free_cells")
-# the two walks of csrc/sgld_cells.cu and csrc/adreg_cells.cu
-# (tpu_mf_torch/ops/tile_walk.py: WALKS)
+# the two walks of csrc/sgld_cells.cu, csrc/adreg_cells.cu and
+# csrc/free_cells.cu (tpu_mf_torch/ops/tile_walk.py: WALKS)
 WALKS = ("tile", "grid")
+# the free-column kernel's groups in phase 19 (user/item): one column a
+# window, whole batches, and windows of unequal widths
+FREE_GROUPS = ((8, 8), (1, 1), (8, 1), (4, 2))
+# the free tile walk's cluster sizes timed in phase 21
+# (tpu_mf_torch/ops/tile_walk.py: FREE_CLUSTERS), in turns
+FREE_PROBE = (1, 2, 4, 8, 8, 4, 2, 1)
 # the card's published peaks (H100 SXM data sheet, at 700 W): memory bytes/s,
 # bf16 tensor-core and float32 CUDA-core operations/s
 HBM_BYTES_S, PEAK_BF16, PEAK_F32 = 3.35e12, 989e12, 67e12
@@ -758,30 +772,27 @@ def phase_replay_ladder(torch, tc, cfg, train, test, params, rm, geo_packed,
 
 
 def time_one_epoch(torch, tc, cfg, runner, train, test, init, it, name,
-                   phase=10, atol=ATOL_LADDER_FULL, plain=None,
-                   bound_fn=window_bound):
+                   phase=10, atol=ATOL_LADDER_FULL):
     """One full epoch at epoch ``it``'s eta from the initial tables, plain
-    version (``plain(tables, eta, it)``, by default ``plain_epoch``),
-    kernel, kernel, plain version, timed with CUDA events and held to each
-    other; returns the median epoch ms of each, the bound of the epoch
-    (``bound_fn``) and the plain version's tables."""
+    version (``plain_epoch``; once: it takes seconds), kernel, kernel,
+    timed with CUDA events and held to each other; returns the median
+    epoch ms of each, the bound of the epoch and the plain version's
+    tables."""
     from tpu_mf_torch.models.mf import rmse
 
     eta = cfg.eta_at(it)
     gb = float(init.gb)
-    plain = plain or (lambda tabs, eta, it: plain_epoch(
-        tc, runner, tabs, eta, cfg.lam, gb, it))
     tg, pg = runner.pick_theta_groups(eta), runner.pick_phi_groups(eta)
     plan = runner.materialize()._dev[it % len(runner._dev)]
     times, out = {"kernel": [], "plain": []}, {}
-    for which in ("plain", "kernel", "kernel", "plain"):
+    for which in ("plain", "kernel", "kernel"):
         tabs = runner.pad(init)
         a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
         a.record()
         if which == "kernel":
             runner.epoch(tabs, eta, cfg.lam, gb, epoch_idx=it)
         else:
-            plain(tabs, eta, it)
+            plain_epoch(tc, runner, tabs, eta, cfg.lam, gb, it)
         b.record()
         torch.cuda.synchronize()
         times[which].append(a.elapsed_time(b))
@@ -800,8 +811,8 @@ def time_one_epoch(torch, tc, cfg, runner, train, test, init, it, name,
         raise AssertionError(f"{name}: tRMSE of kernel and plain disagree")
     p = runner.plan
     return (median(times["kernel"]), median(times["plain"]),
-            bound_fn(plan, p.n_gu * p.tile_u, p.n_gv * p.tile_v, n,
-                     cfg.dim)), out["plain"]
+            window_bound(plan, p.n_gu * p.tile_u, p.n_gv * p.tile_v, n,
+                         cfg.dim)), out["plain"]
 
 
 def phase_time(torch, td, cfg, train, test, params_final, rm):
@@ -1818,25 +1829,31 @@ def phase_compare_mega_free(torch, tc, tpk, tm, tf, rng):
             sentinel = int((r.plan.w.sum(axis=1) == 0).sum())
             if not sentinel:
                 raise AssertionError("the free plan has no sentinel column")
-            for groups in ((8, 8), (1, 1), (8, 1)):
-                got = r.pad(params_from_numpy(*tabs, gb, device=DEVICE))
-                want = tuple(t.clone() for t in got)
+            if mxu == "float32" and not saturate:
+                log_walk(19, "free", r)
+            for groups in FREE_GROUPS:
+                start = r.pad(params_from_numpy(*tabs, gb, device=DEVICE))
+                want = tuple(t.clone() for t in start)
                 hyper = (eta, lam, gb, max(1.0, 0.2 / eta), DIM, *groups,
                          r.work_dtype, saturate, r.mxu_pred)
                 tf.free_epoch_reference(*want, r._dev[0], *hyper)
-                tf.free_epoch(*got, r._dev[0], *hyper)
-                torch.cuda.synchronize()
-                err = max(float((a - b).abs().max())
-                          for a, b in zip(got, want))
-                errs["free"][mxu] = max(errs["free"].get(mxu, 0.0), err)
-                log(f"# phase 19: free vs plain, {mxu}, groups "
-                    f"{groups[0]}/{groups[1]}, saturate {saturate}, batch "
-                    f"{r.batch} at tiles 128x128, {r.plan.u.shape[0]} "
-                    f"batches ({sentinel} sentinel columns), dim {DIM}, {n} "
-                    f"ratings: max_abs_err {err:.3e} (atol "
-                    f"{ATOL_CELL[mxu]:g})")
-                if not err <= ATOL_CELL[mxu]:
-                    raise AssertionError(f"free disagrees ({mxu}): {err}")
+                for walk in WALKS:
+                    got = tuple(t.clone() for t in start)
+                    tf.free_epoch(*got, r._dev[0], *hyper, walk=walk)
+                    torch.cuda.synchronize()
+                    err = max(float((a - b).abs().max())
+                              for a, b in zip(got, want))
+                    key = walk, mxu
+                    errs["free"][key] = max(errs["free"].get(key, 0.0), err)
+                    log(f"# phase 19: free vs plain, {walk} walk, {mxu}, "
+                        f"groups {groups[0]}/{groups[1]}, saturate "
+                        f"{saturate}, batch {r.batch} at tiles 128x128, "
+                        f"{r.plan.u.shape[0]} batches ({sentinel} sentinel "
+                        f"columns), dim {DIM}, {n} ratings: max_abs_err "
+                        f"{err:.3e} (atol {ATOL_CELL[mxu]:g})")
+                    if not err <= ATOL_CELL[mxu]:
+                        raise AssertionError(
+                            f"free ({walk} walk) disagrees ({mxu}): {err}")
     return errs
 
 
@@ -1928,10 +1945,11 @@ def phase_mega(torch, tc, tm, tf, train, test):
 def phase_free(torch, tc, tm, tf, train, test):
     """Phase 21: ``FreeEpochRunner`` at dim 64 (tiles 128, picked batch,
     balance and saturation on, mxu_pred on) on the stand-in, two plans,
-    bf16, 3 epochs from ``init_mf``'s tables at the CLI defaults; then
-    epoch 1 timed against the plain version, and the same epoch once as
-    the one-user-tile window plan (``free_window_plan``) on
-    ``csrc/cell_sgd.cu``, held to the plain version too."""
+    bf16, 3 epochs from ``init_mf``'s tables at the CLI defaults on the
+    routed walk; then epoch 1 on both walks and the plain version
+    (``time_free_walks``), and the same epoch once as the one-user-tile
+    window plan (``free_window_plan``) on ``csrc/cell_sgd.cu``, held to the
+    plain version too."""
     from tpu_mf_torch.config import TrainConfig
     from tpu_mf_torch.models.mf import init_mf
 
@@ -1953,18 +1971,12 @@ def phase_free(torch, tc, tm, tf, train, test):
                    torch.Generator().manual_seed(cfg.seed), DEVICE)
     _, launches = run_runner(torch, cfg, r, init, test, 21,
                              ("free", "free_epoch"), all_counts(tc, tm, tf))
+    log_walk(21, "free", r)
     eta, it = cfg.eta_at(1), 1
     tg, pg = r.pick_theta_groups(eta), r.pick_phi_groups(eta)
     cap = max(1.0, 0.2 / eta)
-
-    def plain(tabs, eta, it):
-        tf.free_epoch_reference(*tabs, r._dev[it % 2], eta, cfg.lam, cfg.gb,
-                                cap, DIM, tg, pg, r.work_dtype, r.saturate,
-                                r.mxu_pred)
-
-    timed, want = time_one_epoch(torch, tc, cfg, r, train, test, init, it,
-                                 "free", 21, ATOL_CELL_FULL, plain,
-                                 free_bound)
+    timed, want, walk = time_free_walks(torch, tf, cfg, r, train, test, init,
+                                        it, eta, tg, pg, cap)
     t = time.perf_counter()
     window = tc.upload_plan(tf.free_window_plan(r.plans[it % 2]), DEVICE)
     torch.cuda.synchronize()
@@ -1985,13 +1997,89 @@ def phase_free(torch, tc, tm, tf, train, test):
         f"epoch ms {[round(x, 3) for x in ms]} (free_cells {timed[0]:.3f})")
     hold("the one-user-tile window plan on cell_sgd vs the free plain "
          "version", r.trim(tabs), want, init, ATOL_CELL_FULL, 21)
-    return launches, timed
+    return launches, timed, walk
+
+
+def time_free_walks(torch, tf, cfg, r, train, test, init, it, eta, tg, pg,
+                    cap):
+    """Epoch ``it`` of ``FreeEpochRunner`` ``r`` from ``init``: the plain
+    version once, then the grid and the tile walk in turns (grid, tile,
+    tile, grid), timed with CUDA events, each walk held to the plain
+    version; the tile walk at each cluster size of FREE_PROBE in turns,
+    each held too; the tile walk's clocks per window step by phase (a
+    ``-DTMF_TILE_CLOCKS`` build). Returns the routed walk's and the plain
+    version's median ms with the bound, the plain version's tables and the
+    routed walk."""
+    from tpu_mf_torch.models.mf import rmse
+
+    idx = it % len(r._dev)
+    plan = r._dev[idx]
+    gb = float(init.gb)
+    times, out = {w: [] for w in ("plain",) + WALKS}, {}
+
+    def run(which, tabs):
+        if which == "plain":
+            tf.free_epoch_reference(*tabs, plan, eta, cfg.lam, gb, cap, DIM,
+                                    tg, pg, r.work_dtype, r.saturate,
+                                    r.mxu_pred)
+        else:
+            r.epoch(tabs, eta, cfg.lam, gb, epoch_idx=it, walk=which)
+
+    def timed_run(which):
+        tabs = r.pad(init)
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        run(which, tabs)
+        b.record()
+        torch.cuda.synchronize()
+        return a.elapsed_time(b), r.trim(tabs)
+
+    for which in ("plain", "grid", "tile", "tile", "grid"):
+        ms, tabs = timed_run(which)
+        times[which].append(ms)
+        out.setdefault(which, tabs)
+    n = len(train)
+    for what, ts in times.items():
+        log(f"# phase 21: free {what}: epoch ms {[round(x, 3) for x in ts]}, "
+            f"rating updates/s {[round(n / (x / 1e3)) for x in ts]}")
+    for walk in WALKS:
+        hold(f"free epoch {it} (eta {eta:g}, groups {tg}/{pg}, "
+             f"{plan.u.shape[0]} batches, columns of {plan.u.shape[2]}), "
+             f"{walk} walk vs plain", out[walk], out["plain"], init,
+             ATOL_CELL_FULL, 21)
+        rm_k, rm_p = rmse(out[walk], test), rmse(out["plain"], test)
+        log(f"# phase 21: free tRMSE {walk} walk {rm_k:.6f} plain "
+            f"{rm_p:.6f}")
+        if not abs(rm_k - rm_p) <= 1e-3:
+            raise AssertionError(f"free: tRMSE of the {walk} walk and plain "
+                                 "disagree")
+    routed = plan.walk
+    probe = {c: [] for c in FREE_PROBE}
+    try:
+        for c in FREE_PROBE:
+            r._dev[idx] = plan._replace(walk=routed._replace(cluster=c))
+            ms, tabs = timed_run("tile")
+            probe[c].append(ms)
+            hold(f"free tile walk on clusters of {c}", tabs, out["plain"],
+                 init, ATOL_CELL_FULL, 21)
+    finally:
+        r._dev[idx] = plan
+    log(f"# phase 21: free tile walk by cluster size (routed "
+        f"{routed.cluster}), epoch ms in turns: " + "; ".join(
+            f"{c}: {[round(x, 3) for x in ts]}" for c, ts in probe.items()))
+    tile_clocks(torch, tf, "free", 21, "free", r,
+                lambda tabs: run("tile", tabs), lambda: r.pad(init))
+    p = r.plan
+    return (median(times[routed.route]), median(times["plain"]),
+            free_bound(plan, p.n_gu * p.tile_u, p.n_gv * p.tile_v, n,
+                       cfg.dim)), out["plain"], routed.route
 
 
 def entry(name, replaces, launches, err, timed, source=None, walk=None):
     """A kernel's line of the JSON summary; ``walk`` names the walk of
-    ``csrc/sgld_cells.cu`` or ``csrc/adreg_cells.cu`` that the main path
-    took (and that ``ms`` and ``max_abs_err`` are of)."""
+    ``csrc/sgld_cells.cu``, ``csrc/adreg_cells.cu`` or ``csrc/free_cells.cu``
+    that the main path took (and that ``ms`` and ``max_abs_err`` are
+    of)."""
     ms, plain_ms, (bound_ms, bound_by) = timed
     out = {"name": name, "route": "cuda",
            "source": source or f"tpu_mf_torch/csrc/{name}.cu",
@@ -2177,12 +2265,14 @@ def main(argv=None) -> int:
                 "mega", "tpu_mf/ops/pallas_sgd_mega.py:105", mega_launches,
                 mf_errs["mega"]["bfloat16"], mega_t, cell_src)
     if want(21):
-        free_launches, free_t = phase_free(torch, tc, tm, tf, train, test)
+        free_launches, free_t, free_walk = phase_free(torch, tc, tm, tf,
+                                                      train, test)
         lap("21")
         if want(19):
             ent["free"] = entry(
                 "free", "tpu_mf/ops/pallas_sgd_free.py:183", free_launches,
-                mf_errs["free"]["bfloat16"], free_t, free_src)
+                mf_errs["free"][free_walk, "bfloat16"], free_t, free_src,
+                free_walk)
     bad = sorted(m for m in sys.modules
                  if m.split(".")[0] in ("jax", "jaxlib", "tpu_mf"))
     if bad:

@@ -687,6 +687,7 @@ def sentinel_free_data():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("walk", ["tile", "grid"])
 @pytest.mark.parametrize("saturate", [False, True])
 @pytest.mark.parametrize("data,groups", [
     ("zipf", (8, 8)), ("zipf", (1, 1)), ("zipf", (2, 4)),
@@ -695,12 +696,12 @@ def sentinel_free_data():
     ("float32", True, 1e-4), ("bfloat16", True, 2e-3),
     ("bfloat16", False, 2e-3)])
 def test_free_kernel_matches_reference(cuda, mxu, mxu_pred, atol, data,
-                                       groups, saturate):
-    """free_epoch (csrc/free_cells.cu) against free_epoch_reference on the
-    card, at dim 40, per-column user and item tiles, pinned groups, with
-    saturation on and off, and on a plan whose trailing sentinel columns
-    hold a tile's last touch; the window-plan tolerances of
-    test_cell_kernel_matches_reference."""
+                                       groups, saturate, walk):
+    """free_epoch (csrc/free_cells.cu) on each walk against
+    free_epoch_reference on the card, at dim 40, per-column user and item
+    tiles, pinned groups, with saturation on and off, and on a plan whose
+    trailing sentinel columns hold a tile's last touch; the window-plan
+    tolerances of test_cell_kernel_matches_reference."""
     ds = zipf_free_data() if data == "zipf" else sentinel_free_data()
     tabs = np_tables(ds.nu, ds.nv, 40, seed=6, gb=3.0)
     r = tf.FreeEpochRunner(ds, batch=1024 if data == "zipf" else 256,
@@ -712,16 +713,83 @@ def test_free_kernel_matches_reference(cuda, mxu, mxu_pred, atol, data,
     base = r.pad(params_from_numpy(*tabs, device=cuda))
     ref = tuple(t.clone() for t in base)
     before, runs = tf.free_epoch.launches, tf.FreeEpochRunner.launches
+    by_walk = tf.free_epoch.walks[walk]
     tf.free_epoch_reference(*ref, r._dev[0], 0.02, 0.005, 3.0, 10.0, r.dim,
                             *groups, r.work_dtype, saturate, mxu_pred)
-    r.epoch(base, 0.02, 0.005, 3.0)
+    r.epoch(base, 0.02, 0.005, 3.0, walk=walk)
     torch.cuda.synchronize()
     assert tf.free_epoch.launches == before + 1
+    assert tf.free_epoch.walks[walk] == by_walk + 1
     assert tf.FreeEpochRunner.launches == runs + 1
+    assert r.last_walk == walk
     for a, b in zip(base, ref):
         assert float((a - b).abs().max()) <= atol
     start = r.pad(params_from_numpy(*tabs, device=cuda))
     assert float((base[1] - start[1]).abs().max()) > 1e-3  # it trained
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cluster", [1, 2, 4, 8])
+def test_free_walk_counters_across_launches(cuda, cluster):
+    """Four epochs on the tile walk over two rotated plans that share one
+    TileWalkCounters, nothing cleared between launches, at each cluster
+    size: every launch takes the next generation and the ticket moves by
+    the launch's units plus clusters; the tables stay within the f32
+    window-plan tolerance of the plain version's four epochs."""
+    ds = zipf_free_data()
+    tabs = np_tables(ds.nu, ds.nv, 40, seed=6, gb=3.0)
+    r = tf.FreeEpochRunner(ds, batch=1024, mxu="float32", n_plans=2,
+                           device=cuda).materialize()
+    cnt = r._counters
+    assert all(p.walk.counters is cnt for p in r._dev)
+    r._dev = [p._replace(walk=p.walk._replace(cluster=cluster))
+              for p in r._dev]
+    got = r.pad(params_from_numpy(*tabs, device=cuda))
+    want = tuple(t.clone() for t in got)
+    for it in range(4):
+        eta = 0.02 / (1 + it)
+        gen, base = cnt.gen, cnt.ticket_base
+        plan = r._dev[it % 2]
+        tf.free_epoch_reference(*want, plan, eta, 0.005, 3.0,
+                                max(1.0, 0.2 / eta), r.dim,
+                                r.pick_theta_groups(eta),
+                                r.pick_phi_groups(eta), r.work_dtype,
+                                r.saturate, r.mxu_pred)
+        r.epoch(got, eta, 0.005, 3.0, epoch_idx=it, walk="tile")
+        torch.cuda.synchronize()
+        units = plan.walk.walks[0].n_units
+        assert cnt.gen == gen + 1
+        assert 1 <= cnt.ticket_base - base - units <= min(units, 132)
+        # every cluster drew one ticket past the last unit
+        assert int(cnt.counters[-1]) & 0xFFFFFFFF == cnt.ticket_base
+    for a, b in zip(got, want):
+        assert float((a - b).abs().max()) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_free_walk_launch_failures_raise(cuda):
+    """A free tile walk the card cannot launch raises and counts nothing:
+    clusters of 32 blocks (past the 16 a cluster can hold) and a walk on
+    another device's counters; an unknown walk is refused."""
+    from tpu_mf_torch.ops import tile_walk as tw
+
+    r = tf.FreeEpochRunner(zipf_free_data(), batch=1024, device=cuda)
+    theta, phi = r.pad(params_from_numpy(*np_tables(380, 500, 40, 6, 3.0),
+                                         device=cuda))
+    plan = r._dev[0]
+    args = (0.02, 0.005, 3.0, 10.0, 40, 8, 8)
+    before = tf.free_epoch.launches
+    for bad, err in ((plan.walk._replace(cluster=32), RuntimeError),
+                     (plan.walk._replace(
+                         counters=tw.TileWalkCounters(1, 1, "cpu")),
+                      ValueError)):
+        with pytest.raises(err):
+            tf.free_epoch(theta, phi, plan._replace(walk=bad), *args,
+                          walk="tile")
+            torch.cuda.synchronize()
+    with pytest.raises(ValueError):
+        tf.free_epoch(theta, phi, plan, *args, walk="diagonal")
+    assert tf.free_epoch.launches == before
 
 
 @pytest.mark.cuda

@@ -154,8 +154,9 @@ def test_route_by_critical_path():
     tile shared by every unit chains them all (grid walk); a tile per user
     tile leaves the units independent (tile walk) until the windows hold so
     many slots that one cluster takes more rounds over the short chain than
-    the card over every window (grid walk again); the ML-10M plans' counts
-    route as their runs measured."""
+    the card over every window (grid walk again), also on a card of 8 SMs,
+    where the one cluster that fits runs every window in turn; the ML-10M
+    plans' counts route as their runs measured."""
     w = np.ones((8, 1, 8))
     gu = np.repeat(np.arange(4), 2)
     chained = tw.plan_tile_walk(plan_of(gu, np.zeros((8, 8)), w), 0, 8)
@@ -173,7 +174,9 @@ def test_route_by_critical_path():
     wide = tw.plan_tile_walk(plan_of(gu, gv, tall), 0, 8, 8)
     assert (wide.crit, wide.n_windows, wide.slots) == (2, 8, 4096)
     assert tw.tile_walk_route(wide, cluster=8) == "grid"  # 2 x 23 > 8 x 4
-    assert tw.tile_walk_route(wide, cluster=8, sms=8) == "tile"  # < 8 x 19
+    # one cluster of 8 fits on 8 SMs: 8 windows in turn, 8 x 23 > 8 x 19
+    assert tw.walk_steps(wide, 8, sms=8) == 8
+    assert tw.tile_walk_route(wide, cluster=8, sms=8) == "grid"
     # (crit, windows, slots a window) of the ML-10M plans: gen-1 AdaptReg
     # and SGLD on clusters of 8, slot AdaptReg at 8/8 and slot SGLD on
     # clusters of 16

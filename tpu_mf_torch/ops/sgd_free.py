@@ -30,9 +30,13 @@ them at the window's end, as the sequential walk does.
 The plan builder, the geometry picker, the balance maps, the window
 statistics and ``free_eligible`` give ``tpu_mf``'s answers, bit for bit.
 The TPU's byte-plane id streams, its SMEM plan check and its ablations are
-layout or measurement and are not ported. ``free_epoch`` runs the hand-written CUDA
-kernel (``csrc/free_cells.cu``, one launch per epoch) on CUDA tensors and
-the plain PyTorch version ``free_epoch_reference`` on CPU tensors.
+layout or measurement and are not ported. ``free_epoch`` runs the
+hand-written CUDA kernel (``csrc/free_cells.cu``, one launch per epoch) on
+CUDA tensors, on the walk ``ops/tile_walk.py: tile_walk_route`` picks for
+the plan (the tile walk: units of columns on one user tile, one
+thread-block cluster each, ordered by ready counters per tile; or the grid
+walk), and the plain PyTorch version ``free_epoch_reference`` on CPU
+tensors.
 """
 
 from __future__ import annotations
@@ -55,6 +59,15 @@ from tpu_mf_torch.ops.sgd_cells import (
     _apply_flags,
     balance_cells,
     window_apply,
+)
+from tpu_mf_torch.ops.tile_walk import (
+    WALKS,
+    DeviceWalk,
+    TileWalkCounters,
+    pick_walk,
+    plan_tile_walk,
+    upload_walk,
+    walk_launch,
 )
 
 
@@ -210,7 +223,7 @@ class FreeDevicePlan(NamedTuple):
     """One FreePlan on a device, columns contiguous: slot s of column k of
     batch i is element [i, k, s]. ``ap_u`` / ``ap_v`` hold each side's
     apply flags per grouping; the host copies drive the plain version's
-    loop without device reads."""
+    loop without device reads. ``walk`` is the plan's tile walk."""
 
     u: torch.Tensor    # (NB, 8, B/8) int32 tile-local ids, sentinel tile_u
     v: torch.Tensor    # (NB, 8, B/8) int32
@@ -228,6 +241,7 @@ class FreeDevicePlan(NamedTuple):
     tile_v: int
     n_gu: int
     n_gv: int
+    walk: DeviceWalk
 
 
 def free_flags(g: np.ndarray) -> dict:
@@ -239,14 +253,22 @@ def free_flags(g: np.ndarray) -> dict:
     return flags
 
 
-def upload_free_plan(plan: FreePlan, device: torch.device | str
+def upload_free_plan(plan: FreePlan, device: torch.device | str,
+                     counters: TileWalkCounters | None = None
                      ) -> FreeDevicePlan:
+    """The plan on ``device``, with its tile walk (at one column a window,
+    the 8/8 groups) on ``counters`` (new ones by default; a runner's plans
+    share one set)."""
     def cols(a):
         return torch.as_tensor(a).to(device).transpose(1, 2).contiguous()
 
     def dev(flags):
         return {k: torch.as_tensor(a).to(device) for k, a in flags.items()}
 
+    if counters is None:
+        counters = TileWalkCounters(plan.n_gv, plan.n_gu, device)
+    walk = upload_walk(plan_tile_walk(plan, 0, plan.gu.shape[0]), counters,
+                       free_rows=plan.tile_u + plan.tile_v)
     ap_u, ap_v = free_flags(plan.gu), free_flags(plan.gv)
     return FreeDevicePlan(
         u=cols(plan.u), v=cols(plan.v), r=cols(plan.r), w=cols(plan.w),
@@ -254,8 +276,64 @@ def upload_free_plan(plan: FreePlan, device: torch.device | str
         gv=torch.as_tensor(plan.gv).to(device), ap_u=dev(ap_u),
         ap_v=dev(ap_v), gu_host=plan.gu, gv_host=plan.gv, ap_u_host=ap_u,
         ap_v_host=ap_v, tile_u=plan.tile_u, tile_v=plan.tile_v,
-        n_gu=plan.n_gu, n_gv=plan.n_gv,
+        n_gu=plan.n_gu, n_gv=plan.n_gv, walk=walk,
     )
+
+
+class FreeStep(NamedTuple):
+    """What the plain version's window steps share: the working type, the
+    hyperparameters on the tables' device, the apply and the count lane."""
+
+    work: torch.dtype
+    mxu_pred: bool
+    eta: torch.Tensor
+    gb: torch.Tensor
+    apply: object      # window_apply(...)
+    cnt: torch.Tensor  # 1 at the count lane
+
+    @classmethod
+    def of(cls, theta, eta, lam, gb, cap, dim, work, saturate, mxu_pred):
+        f32, dev, lanes = torch.float32, theta.device, theta.shape[1]
+        eta_t, lam_t, gb_t, cap_t = torch.tensor([eta, lam, gb, cap],
+                                                 dtype=f32, device=dev)
+        return cls(work, mxu_pred, eta_t, gb_t,
+                   window_apply(eta_t, lam_t, cap_t, lanes, dim, saturate),
+                   (torch.arange(lanes, device=dev) == dim + 2).to(f32))
+
+    def scatter(self, theta, phi, acc_u, acc_v, plan: FreeDevicePlan,
+                i: int, c0: int, c1: int) -> None:
+        """Columns [c0, c1) of batch i at once: gather both rows of every
+        slot from the tables, predict, and add the deltas and counts into
+        the scratches. Rows, t*p (``mxu_pred``) and the scatter operands
+        are rounded to the working type where the TPU kernel rounds them;
+        every sum is float32."""
+        lanes = theta.shape[1]
+        w = plan.w[i, c0:c1]
+        real = w > 0  # padded slots: their column's row 0, weight 0
+        ul = (torch.where(real, plan.u[i, c0:c1], 0).long()
+              + plan.gu[i, c0:c1].long().unsqueeze(-1) * plan.tile_u)
+        vl = (torch.where(real, plan.v[i, c0:c1], 0).long()
+              + plan.gv[i, c0:c1].long().unsqueeze(-1) * plan.tile_v)
+        t = self.rnd(theta[ul])                   # (c1 - c0, B/8, lanes)
+        p = self.rnd(phi[vl])
+        tp = self.rnd(t * p) if self.mxu_pred else t * p
+        pred = tp.sum(-1, keepdim=True) + self.gb
+        wk = w.unsqueeze(-1)
+        err = (self.eta * wk) * (plan.r[i, c0:c1].unsqueeze(-1) - pred)
+        acc_u.index_add_(0, ul.reshape(-1),
+                         self.rnd(err * p + wk * self.cnt).reshape(-1, lanes))
+        acc_v.index_add_(0, vl.reshape(-1),
+                         self.rnd(err * t + wk * self.cnt).reshape(-1, lanes))
+
+    def apply_tile(self, tab, acc, g: int, tile: int, side: int) -> None:
+        """Tile g of a table (side 0 theta, 1 phi) takes its deltas from
+        ``acc``, which are cleared."""
+        rows = slice(g * tile, (g + 1) * tile)
+        tab[rows] = self.apply(tab[rows], acc[rows], side)
+        acc[rows] = 0.0
+
+    def rnd(self, x):
+        return x if self.work == torch.float32 else x.to(self.work).float()
 
 
 def free_epoch_reference(theta: torch.Tensor, phi: torch.Tensor,
@@ -266,65 +344,45 @@ def free_epoch_reference(theta: torch.Tensor, phi: torch.Tensor,
     """Plain PyTorch free-column epoch, in place on the fused tables.
 
     Gathers and ``index_add_`` per window step (the columns between two
-    window ends of either side run at once); at a window's end each flagged
-    tile applies from its side's scratch. Rows, t*p (``mxu_pred``) and the
-    scatter operands are rounded to the working type where the TPU kernel
-    rounds them; every sum is float32."""
-    f32 = torch.float32
-    dev = theta.device
-    lanes = theta.shape[1]
-    eta_t, lam_t, gb_t, cap_t = torch.tensor([eta, lam, gb, cap], dtype=f32,
-                                             device=dev)
-    apply = window_apply(eta_t, lam_t, cap_t, lanes, dim, saturate)
-    cnt = (torch.arange(lanes, device=dev) == dim + 2).to(f32)
-    tu, tv = plan.tile_u, plan.tile_v
+    window ends of either side run at once, ``FreeStep.scatter``); at a
+    window's end each flagged tile applies from its side's scratch."""
+    fs = FreeStep.of(theta, eta, lam, gb, cap, dim, work, saturate,
+                     mxu_pred)
     acc_u, acc_v = torch.zeros_like(theta), torch.zeros_like(phi)
-    sides = ((0, 8 // groups_u, theta, acc_u, plan.gu_host, tu,
+    sides = ((0, 8 // groups_u, theta, acc_u, plan.gu_host, plan.tile_u,
               plan.ap_u_host[groups_u]),
-             (1, 8 // groups_v, phi, acc_v, plan.gv_host, tv,
+             (1, 8 // groups_v, phi, acc_v, plan.gv_host, plan.tile_v,
               plan.ap_v_host[groups_v]))
     step = min(8 // groups_u, 8 // groups_v)
-
-    def rnd(x):
-        return x if work == f32 else x.to(work).to(f32)
-
-    # global rows of every slot (padded slots: their column's row 0)
-    real = plan.w > 0
-    rows_u = (torch.where(real, plan.u, 0).long()
-              + plan.gu.long().unsqueeze(-1) * tu)
-    rows_v = (torch.where(real, plan.v, 0).long()
-              + plan.gv.long().unsqueeze(-1) * tv)
     for i in range(plan.u.shape[0]):
         for c0 in range(0, 8, step):
             c1 = c0 + step
-            w = plan.w[i, c0:c1]
-            ul, vl = rows_u[i, c0:c1], rows_v[i, c0:c1]
-            t = rnd(theta[ul])                   # (step, B/8, lanes)
-            p = rnd(phi[vl])
-            tp = rnd(t * p) if mxu_pred else t * p
-            pred = tp.sum(-1, keepdim=True) + gb_t
-            wk = w.unsqueeze(-1)
-            err = (eta_t * wk) * (plan.r[i, c0:c1].unsqueeze(-1) - pred)
-            acc_u.index_add_(0, ul.reshape(-1),
-                             rnd(err * p + wk * cnt).reshape(-1, lanes))
-            acc_v.index_add_(0, vl.reshape(-1),
-                             rnd(err * t + wk * cnt).reshape(-1, lanes))
+            fs.scatter(theta, phi, acc_u, acc_v, plan, i, c0, c1)
             for side, win, tab, acc, g, tile, ap in sides:
                 if c1 % win:
                     continue
                 for c in range(c1 - win, c1):
                     if ap[i, c]:
-                        rows = slice(int(g[i, c]) * tile,
-                                     (int(g[i, c]) + 1) * tile)
-                        tab[rows] = apply(tab[rows], acc[rows], side)
-                        acc[rows] = 0.0
+                        fs.apply_tile(tab, acc, int(g[i, c]), tile, side)
 
 
 def _free_lib() -> ctypes.CDLL:
-    lib = _build.load("free_cells")
+    return bind_free_lib(_build.load("free_cells"))
+
+
+def bind_free_lib(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """``lib``, a build of ``csrc/free_cells.cu``, with its entry points'
+    argument types set."""
     fn = lib.tmf_free_epoch
     fn.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 11
                    + [ctypes.c_float] * 4 + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    fn = lib.tmf_free_walk
+    fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 10
+                   + [ctypes.c_float] * 4 + [ctypes.c_void_p] * 2)
+    fn.restype = ctypes.c_int
+    fn = lib.tmf_free_walk_clusters
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
     fn.restype = ctypes.c_int
     return lib
 
@@ -368,12 +426,12 @@ def free_epoch(theta: torch.Tensor, phi: torch.Tensor, plan: FreeDevicePlan,
                eta: float, lam: float, gb: float, cap: float, dim: int,
                groups_u: int, groups_v: int,
                work: torch.dtype = torch.bfloat16, saturate: bool = True,
-               mxu_pred: bool = True) -> None:
+               mxu_pred: bool = True, walk: str | None = None) -> None:
     """One free-column epoch, in place on the fused (theta_ext, phi_ext).
 
     CPU tensors take the plain version; CUDA tensors launch the
-    ``csrc/free_cells.cu`` kernel (one cooperative launch per epoch) or
-    raise."""
+    ``csrc/free_cells.cu`` kernel (one launch per epoch) or raise, on the
+    walk ``walk`` forces ("tile" or "grid"; default: the plan's route)."""
     check_free_launch(theta, phi, plan, groups_u, groups_v, dim, work)
     if theta.device.type == "cpu":
         free_epoch_reference(theta, phi, plan, eta, lam, gb, cap, dim,
@@ -381,26 +439,48 @@ def free_epoch(theta: torch.Tensor, phi: torch.Tensor, plan: FreeDevicePlan,
         return
     if theta.device.type != "cuda":
         raise ValueError(f"free_epoch: no kernel for device {theta.device}")
+    route = pick_walk(plan.walk, walk)
     nb, _, sub = plan.u.shape
-    acc_u, acc_v = torch.zeros_like(theta), torch.zeros_like(phi)
+    lanes = theta.shape[1]
+    acc_v = torch.zeros_like(phi)
     lib = _free_lib()
     with torch.cuda.device(theta.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.tmf_free_epoch(
-            theta.data_ptr(), phi.data_ptr(), plan.u.data_ptr(),
-            plan.v.data_ptr(), plan.r.data_ptr(), plan.w.data_ptr(),
-            plan.gu.data_ptr(), plan.gv.data_ptr(),
-            plan.ap_u[groups_u].data_ptr(), plan.ap_v[groups_v].data_ptr(),
-            acc_u.data_ptr(), acc_v.data_ptr(),
-            nb, sub, plan.tile_u, plan.tile_v, theta.shape[1], dim, groups_u,
-            groups_v, WORK[work], int(mxu_pred), int(saturate),
-            eta, lam, gb, cap, stream)
+        if route == "grid":
+            acc_u = torch.zeros_like(theta)
+            rc = lib.tmf_free_epoch(
+                theta.data_ptr(), phi.data_ptr(), plan.u.data_ptr(),
+                plan.v.data_ptr(), plan.r.data_ptr(), plan.w.data_ptr(),
+                plan.gu.data_ptr(), plan.gv.data_ptr(),
+                plan.ap_u[groups_u].data_ptr(),
+                plan.ap_v[groups_v].data_ptr(), acc_u.data_ptr(),
+                acc_v.data_ptr(), nb, sub, plan.tile_u, plan.tile_v, lanes,
+                dim, groups_u, groups_v, WORK[work], int(mxu_pred),
+                int(saturate), eta, lam, gb, cap, stream)
+        else:
+            dw = plan.walk
+            launch, d_theta = walk_launch(
+                dw, 0, nb, groups_v, ("free", WORK[work], int(mxu_pred)),
+                lambda c, out: lib.tmf_free_walk_clusters(
+                    WORK[work], int(mxu_pred), c, out),
+                plan.tile_u, lanes, theta.device)
+            rc = lib.tmf_free_walk(
+                theta.data_ptr(), phi.data_ptr(), plan.u.data_ptr(),
+                plan.v.data_ptr(), plan.r.data_ptr(), plan.w.data_ptr(),
+                dw.tap_u[groups_u].data_ptr(), dw.tap[groups_v].data_ptr(),
+                acc_v.data_ptr(), sub, plan.tile_u, plan.tile_v, lanes, dim,
+                groups_u, groups_v, WORK[work], int(mxu_pred), int(saturate),
+                eta, lam, gb, cap, ctypes.addressof(launch), stream)
     if rc != 0:
         raise RuntimeError(f"free_cells kernel launch failed: CUDA error {rc}")
+    if route == "tile":
+        plan.walk.counters.advance(launch.n_units, launch.n_clusters)
     free_epoch.launches += 1
+    free_epoch.walks[route] += 1
 
 
 free_epoch.launches = 0  # kernel launches (CUDA calls), not CPU runs
+free_epoch.walks = dict.fromkeys(WALKS, 0)  # the launches by walk
 
 
 class FreeEpochRunner(WindowRunner):
@@ -413,7 +493,11 @@ class FreeEpochRunner(WindowRunner):
     - ``groups_u`` / ``groups_v`` None: each side picked per epoch from eta
       and the plans' window duplicates of global ids (``_global_dup_stats``);
     - ``mxu_pred`` (default on) rounds t*p before the row sum;
-    - ``n_plans`` > 1 rotates plans of seeds seed + 7919 p.
+    - ``n_plans`` > 1 rotates plans of seeds seed + 7919 p;
+    - each plan's tile walk is built at ``materialize`` on one set of
+      counters (``TileWalkCounters``), and ``epoch`` takes the plan's route
+      unless ``walk`` forces one; ``last_walk`` names the walk the last
+      epoch on the card took.
 
     The TPU's ``interpret`` and ``ablate`` options are not taken."""
 
@@ -439,6 +523,8 @@ class FreeEpochRunner(WindowRunner):
         super().__init__(plans, nu, nv, mxu, groups_u, groups_v, saturate,
                          device, map_u=map_u, map_v=map_v)
         self._mxu_pred = self.mxu_pred = mxu_pred
+        self._counters: TileWalkCounters | None = None
+        self.last_walk: str | None = None
 
     def _dups(self, plan, side: str) -> dict:
         if side == "u":
@@ -446,19 +532,33 @@ class FreeEpochRunner(WindowRunner):
         return _global_dup_stats(plan.v, plan.gv, plan.tile_v, plan.n_gv)
 
     def materialize(self) -> "FreeEpochRunner":
+        """Upload the plans and their tile walks, which share one set of
+        counters on the runner's device (once)."""
         if not self._dev:
-            self._dev = [upload_free_plan(p, self.device) for p in self.plans]
+            p = self.plans[0]
+            self._counters = TileWalkCounters(p.n_gv, p.n_gu, self.device)
+            self._dev = [upload_free_plan(q, self.device, self._counters)
+                         for q in self.plans]
         return self
 
+    def route(self, epoch_idx: int = 0) -> str:
+        """The walk the kernel takes on plan ``epoch_idx``
+        (``tile_walk_route``)."""
+        return self.materialize()._dev[epoch_idx % len(self._dev)].walk.route
+
     def epoch(self, tables, eta: float, lam: float, gb: float,
-              epoch_idx: int = 0):
-        """One epoch, in place on the fused tables; returns them."""
+              epoch_idx: int = 0, walk: str | None = None):
+        """One epoch, in place on the fused tables; returns them. ``walk``
+        forces "tile" or "grid" on the card (default: the plan's
+        ``route``)."""
         cap = max(1.0, 0.2 / max(eta, 1e-9))
         plan = self.materialize()._dev[epoch_idx % len(self._dev)]
         launched = free_epoch.launches
         free_epoch(tables[0], tables[1], plan, eta, lam, gb, cap, self.dim,
                    self.pick_theta_groups(eta), self.pick_phi_groups(eta),
-                   self.work_dtype, self.saturate, self.mxu_pred)
+                   self.work_dtype, self.saturate, self.mxu_pred, walk)
+        if free_epoch.launches != launched:
+            self.last_walk = pick_walk(plan.walk, walk)
         type(self).launches += free_epoch.launches - launched
         return tables
 

@@ -1,16 +1,20 @@
 """The tile walk of the window-plan kernels ``csrc/adreg_cells.cu`` and
-``csrc/sgld_cells.cu``: the host planner, the hand-off counters and the
-route between the tile walk and the grid walk.
+``csrc/sgld_cells.cu`` and of the free-column kernel ``csrc/free_cells.cu``:
+the host planner, the hand-off counters and the route between the tile walk
+and the grid walk.
 
 A window plan's batches are sorted by user tile, and one window (a step of
 ``window`` columns of one batch) reads and writes only its user tile and
-the item tiles of its columns. So a window depends on two kinds of earlier
-windows: the last one on its user tile and, per item tile it touches, the
-last one on that item tile. The grid walk runs the windows one after
-another, each ending in two grid syncs. The tile walk runs **units**, the
-maximal runs of consecutive real columns on one user tile (columns without
-a real slot, w = 0 in every slot, are dropped: they change nothing), each
-on one thread-block cluster, and orders them by ready counters:
+the item tiles of its columns. A free-column plan gives every column its
+own user tile, but deals its columns in cell order, user tile first, so
+each user tile is one run of columns there. So a window depends on two
+kinds of earlier windows: the last one on its user tile and, per item tile
+it touches, the last one on that item tile. The grid walk runs the
+windows one after another, each ending in two grid syncs. The tile walk
+runs **units**, the maximal runs of consecutive real columns on one user
+tile (columns without a real slot, w = 0 in every slot, are dropped: they
+change nothing), each on one thread-block cluster, and orders them by
+ready counters:
 
 - units are taken by an atomic ticket in plan order, so a unit waits only
   on units already running or done;
@@ -31,8 +35,17 @@ ticket past the last unit); both numbers wrap unsigned.
 
 ``plan_tile_walk`` builds a plan's walk once per plan and launch range (at
 ``materialize``), ``cluster_size`` sizes its clusters by the slots of a
-window, ``tile_walk_route`` picks the walk by a model of both walks' time,
+window (``free_cluster_size`` those of a free plan by a model of the walk's
+time), ``tile_walk_route`` picks the walk by a model of both walks' time,
 and ``TileWalkCounters`` numbers the launches on one device.
+
+Windows of a free plan may span two units (a user tile's run ends inside a
+window). That is exact: a unit applies a tile where its flag
+(``tile_apply_flags``, on either side) lies, at the last real column of the
+window that touches the tile, and releases an item tile after its last
+touch even where that flag lies on a later unit's column; the later unit
+then reads the tile unapplied, as it stood at the window's start, and adds
+to the same deltas, which it applies.
 """
 
 from __future__ import annotations
@@ -59,6 +72,12 @@ H100_SMS = 132
 # loads), in rounds of a warp's slots, on each walk (the ML-10M runs of
 # both walks, PERF.md)
 TILE_STEP_ROUNDS, GRID_STEP_ROUNDS = 7, 3
+# the free-column walk's cluster sizes, and the fixed cost of a window step
+# on each (waits, barriers, releases), in rounds of a warp's slots or
+# applied rows (fitted to the ML-10M free plan's epochs at each size, ~1 us
+# a round, PERF.md)
+FREE_CLUSTERS = (1, 2, 4, 8)
+FREE_STEP_ROUNDS = {1: 1, 2: 6, 4: 6, 8: 7}
 
 
 class TileWalk(NamedTuple):
@@ -95,13 +114,20 @@ def real_columns(w: np.ndarray) -> np.ndarray:
     return (w > 0).any(axis=1).reshape(-1)
 
 
+def column_user_tiles(gu: np.ndarray) -> np.ndarray:
+    """(nb * 8,) int64: the user tile of every column, from a window plan's
+    gu of (nb,) (one per batch) or a free plan's of (nb, 8)."""
+    gu = np.asarray(gu, np.int64)
+    return gu.reshape(-1) if gu.ndim == 2 else np.repeat(gu, 8)
+
+
 def plan_tile_walk(plan, b0: int, b1: int, window: int = 1) -> TileWalk:
     """The tile walk of the plan batches [b0, b1) of a window plan (a
-    ``CellPlan``: host u/v/w of (nb, sub, 8), gu (nb,), gv (nb, 8)) at
-    ``window`` columns per window step (theta and phi groups of that
-    width): units, per unit and item tile the first and last touching
-    column with the wait value and its release, and the critical path in
-    windows."""
+    ``CellPlan``: host u/v/w of (nb, sub, 8), gu (nb,), gv (nb, 8); or a
+    ``FreePlan``, gu (nb, 8)) at ``window`` columns per window step (groups
+    of that width): units, per unit and item tile the first and last
+    touching column with the wait value and its release, and the critical
+    path in windows."""
     if window not in (1, 2, 4, 8):
         raise ValueError(f"window must divide the 8 columns, got {window}")
     nb = plan.gu.shape[0]
@@ -113,7 +139,7 @@ def plan_tile_walk(plan, b0: int, b1: int, window: int = 1) -> TileWalk:
     col_wait = np.full(nb * 8, -1, np.int32)
     col_rel = np.zeros(nb * 8, np.int32)
     cols = np.flatnonzero(real[b0 * 8:b1 * 8]) + b0 * 8
-    gu_col = plan.gu[cols // 8].astype(np.int64)
+    gu_col = column_user_tiles(plan.gu)[cols]
     # units: maximal runs of consecutive real columns on one user tile
     starts = np.flatnonzero(np.r_[True, gu_col[1:] != gu_col[:-1]]) \
         if len(cols) else np.zeros(0, np.int64)
@@ -171,11 +197,22 @@ def plan_tile_walk(plan, b0: int, b1: int, window: int = 1) -> TileWalk:
                     crit, b0, b1)
 
 
+def walk_user_tiles(walk: TileWalk) -> np.ndarray:
+    """(nb * 8,) int32: the user tile of each real column of the walk's
+    units, -1 elsewhere (``col_tile``'s counterpart on the user side)."""
+    out = np.full(walk.col_tile.shape, -1, np.int32)
+    for c0, c1, g in zip(walk.unit_c0, walk.unit_c1, walk.unit_gu):
+        out[c0:c1] = np.where(walk.col_tile[c0:c1] >= 0, g, -1)
+    return out
+
+
 def tile_apply_flags(col_tile: np.ndarray, groups: int) -> np.ndarray:
     """(nb, 8) int32: 1 where a real column is the last REAL column of its
-    phi group (of ``8 // groups`` columns) on its item tile, the tile
-    walk's deferred-apply point; ``_apply_flags`` of ``ops/sgd_cells.py``
-    with the columns that hold no real slot left out."""
+    group (of ``8 // groups`` columns) on its tile, the tile walk's
+    deferred-apply point; ``_apply_flags`` of ``ops/sgd_cells.py`` with the
+    columns that hold no real slot left out. ``col_tile`` holds the item
+    tile of each real column (``TileWalk.col_tile``) for the item side, or
+    its user tile (``walk_user_tiles``) for a free plan's user side."""
     w = 8 // groups
     ct = col_tile.reshape(-1, 8)
     flags = (ct >= 0).astype(np.int32)
@@ -225,27 +262,58 @@ def cluster_size(walks) -> int:
         else CLUSTER
 
 
+def walk_steps(walk: TileWalk, cluster: int, sms: int = H100_SMS) -> int:
+    """The window steps the tile walk takes one after another: the critical
+    path's, or, where fewer clusters of ``cluster`` blocks (one block an
+    SM) fit on ``sms`` SMs than that keeps busy, its windows spread over
+    the clusters, whichever is more."""
+    return max(walk.crit, -(-walk.n_windows // max(1, sms // cluster)))
+
+
 def tile_walk_route(walks, cluster: int | None = None,
-                    sms: int = H100_SMS) -> str:
+                    sms: int = H100_SMS, fixed: int = TILE_STEP_ROUNDS,
+                    rows: int = 0) -> str:
     """The walk a plan takes on the card, by a model of each walk's time
-    in rounds of a warp's slots: the tile walk runs the critical path's
-    windows one after another, each a fixed ``TILE_STEP_ROUNDS`` plus its
-    slots over the 32 warps of each of a cluster's ``cluster`` blocks; the
-    grid walk runs every window, each ``GRID_STEP_ROUNDS`` plus its slots
-    over one block of 32 warps on each of ``sms`` SMs. "tile" where the
-    first is the shorter, else "grid"; summed over the launch ranges of
-    ``walks`` (a ``TileWalk`` or a list of them). At ML-10M shape the
-    gen-1 plans' chains shrink 8-16x and the tile walk wins ~4.6x; a slot
-    SGLD window of 28,672 slots keeps a cluster of 16 busy for 56 rounds,
-    and the grid walk wins. ``cluster`` defaults to ``cluster_size``."""
+    in rounds of a warp's slots: the tile walk runs ``walk_steps`` windows
+    one after another, each a fixed ``fixed`` rounds plus its slots (and
+    ``rows`` applied rows) over the 32 warps of each of a cluster's
+    ``cluster`` blocks; the grid walk runs every window, each
+    ``GRID_STEP_ROUNDS`` plus its slots over one block of 32 warps on each
+    of ``sms`` SMs. "tile" where the first is the shorter, else "grid";
+    summed over the launch ranges of ``walks`` (a ``TileWalk`` or a list of
+    them). At ML-10M shape the gen-1 plans' chains shrink 8-16x and the
+    tile walk wins ~4.6x; a slot SGLD window of 28,672 slots keeps a
+    cluster of 16 busy for 56 rounds, and the grid walk wins. ``cluster``
+    defaults to ``cluster_size``."""
     if isinstance(walks, TileWalk):
         walks = [walks]
-    warps = 32 * (cluster or cluster_size(walks))
-    tile = sum(w.crit * (TILE_STEP_ROUNDS + -(-w.slots // warps))
-               for w in walks)
+    cluster = cluster or cluster_size(walks)
+    tile = sum(tile_rounds(w, cluster, sms, fixed, rows) for w in walks)
     grid = sum(w.n_windows * (GRID_STEP_ROUNDS + -(-w.slots // (32 * sms)))
                for w in walks)
     return "tile" if tile < grid else "grid"
+
+
+def tile_rounds(walk: TileWalk, cluster: int, sms: int = H100_SMS,
+                fixed: int = TILE_STEP_ROUNDS, rows: int = 0) -> int:
+    """The tile walk's modelled time in rounds of a warp's slots:
+    ``walk_steps`` window steps of ``fixed`` rounds plus the window's slots
+    and ``rows`` applied rows over the cluster's warps."""
+    warps = 32 * cluster
+    return walk_steps(walk, cluster, sms) * (
+        fixed + -(-walk.slots // warps) + -(-rows // warps))
+
+
+def free_cluster_size(walk: TileWalk, rows: int,
+                      sms: int = H100_SMS) -> int:
+    """The blocks of a cluster for a free plan's tile walk: the size of
+    ``FREE_CLUSTERS`` whose modelled time (``tile_rounds`` at
+    ``FREE_STEP_ROUNDS``, ``rows`` applied rows a step) is the least. A free
+    plan's chain is short beside its windows (at ML-10M 659 of 46,086 on
+    546 units), so the clusters that fit on the card, not the chain, bound
+    large clusters: 2 blocks win there (PERF.md)."""
+    return min(FREE_CLUSTERS, key=lambda c: tile_rounds(
+        walk, c, sms, FREE_STEP_ROUNDS[c], rows))
 
 
 class DeviceWalk(NamedTuple):
@@ -270,6 +338,7 @@ class DeviceWalk(NamedTuple):
     cluster: int                   # blocks per cluster (cluster_size)
     route: str
     counters: "TileWalkCounters"   # shared by the runner's plans
+    tap_u: Optional[dict] = None   # a free plan's user-side apply flags
 
     def range_of(self, b0: int, b1: int) -> int:
         """The index of the launch range [b0, b1)."""
@@ -280,11 +349,13 @@ class DeviceWalk(NamedTuple):
 
 
 def upload_walk(walks, counters: "TileWalkCounters", tap: dict | None = None,
-                nz=None) -> DeviceWalk:
+                nz=None, free_rows: int | None = None) -> DeviceWalk:
     """The ``TileWalk``s of one plan (a list, or one) on the device of
     ``counters``, routed for that device's SMs (an H100's on the CPU);
     ``tap`` defaults to the real columns' apply flags at every phi
-    grouping."""
+    grouping. ``free_rows`` marks a free plan's walk (one range), whose
+    window steps apply that many rows: its user-side flags (``tap_u``) are
+    uploaded too, and ``free_cluster_size`` sizes its clusters."""
     device = counters.counters.device
     sms = (torch.cuda.get_device_properties(device).multi_processor_count
            if device.type == "cuda" else H100_SMS)
@@ -303,13 +374,24 @@ def upload_walk(walks, counters: "TileWalkCounters", tap: dict | None = None,
     col_wait = np.maximum.reduce([w.col_wait for w in walks])
     col_rel = np.maximum.reduce([w.col_rel for w in walks])
     off = np.concatenate([[0], np.cumsum([w.n_units for w in walks])])
+    tap_u = None
+    if free_rows is None:
+        cluster = cluster_size(walks)
+        route = tile_walk_route(walks, sms=sms)
+    else:
+        if len(walks) != 1:
+            raise ValueError("a free plan's walk has one launch range")
+        users = walk_user_tiles(first)
+        tap_u = {g: dev(tile_apply_flags(users, g)) for g in (1, 2, 4, 8)}
+        cluster = free_cluster_size(first, free_rows, sms)
+        route = tile_walk_route(walks, cluster, sms,
+                                FREE_STEP_ROUNDS[cluster], free_rows)
     return DeviceWalk(
         cat("unit_c0"), cat("unit_c1"), cat("unit_gu"), cat("unit_wait"),
         dev(first.col_tile), dev(col_wait), dev(col_rel),
         {g: dev(a) for g, a in tap.items()},
         None if nz is None else tuple(dev(a) for a in nz), list(walks),
-        [int(x) for x in off], cluster_size(walks),
-        tile_walk_route(walks, sms=sms), counters)
+        [int(x) for x in off], cluster, route, counters, tap_u)
 
 
 class TileWalkCounters:
