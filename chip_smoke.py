@@ -3,10 +3,11 @@
 
     python3 chip_smoke.py                  # every phase
     python3 chip_smoke.py --phases 1,19-21  # a subset (phase 1 always)
+    python3 chip_smoke.py --yardsticks     # also time plans no route takes
 
 Phases (each prints its own lines; any failure exits non-zero). A listed
 phase brings the rest of its group, the phases that read each other's
-results: 3 and 5; 7-10; 12 and 14; 16 and 18:
+results: 3, 5, 24 and 25; 7-10; 12 and 14; 16 and 18:
   1. build the CUDA kernels from the sources in the checkout, one nvcc per
      source, all at once;
   2. each kernel against its plain PyTorch version on the card: one dense
@@ -32,7 +33,8 @@ results: 3 and 5; 7-10; 12 and 14; 16 and 18:
      64 and 8 from a diagnostic build (``-DTMF_WALK_CLOCKS``);
   4. the gen-1 path: the same run with ``use_dense=False`` (``--no-dense``):
      the gen-1 kernel must carry every epoch and the dense kernel none, and
-     tRMSE must fall; then its epochs timed as in phase 3; then epoch 1's
+     tRMSE must fall; then its epochs timed as in phase 3 on that run's
+     runner and plans; then epoch 1's
      plan in turns with the same plan at every weight 0 (the walk's
      skeleton), us per window step;
   5. the {result}_3 checkpoint written, read back and checked;
@@ -46,15 +48,17 @@ results: 3 and 5; 7-10; 12 and 14; 16 and 18:
      slot sub, plain and striped), on 6x6 tiles at ML-10M density, both
      working types, at 8/8 groups and at an eta whose windows span 2+
      columns;
-  9. phase 7's run replayed with the plain version: the same schedule
-     (``_mf_runner_schedule``) from the same initial tables, every epoch
+  9. phase 7's run replayed with the plain version: the schedule that run
+     built (its runners and plans, kept from ``_mf_runner_schedule``) from
+     the same initial tables, every epoch
      through ``cell_epoch_reference`` with handovers through trim/pad; the
      final tables must agree with train_mf's, each table's difference must
      be small beside how far training moved it, and the tRMSE must agree;
  10. one full epoch of each phase of that schedule (packed at epoch 1,
-     each slot phase at its first epoch), plain version, kernel, kernel
-     from the same initial tables, timed with CUDA events
-     and held to each other as in phase 9;
+     each slot phase at its first epoch) from the same initial tables,
+     timed with CUDA events: the packed and the first slot phase plain
+     version, kernel, kernel, held to each other as in phase 9; the later
+     slot phases kernel, kernel (phase 9 holds their epochs);
  11. the two SGLD kernels, each on both walks (the tile walk and the grid
      walk), against their plain versions on the card, both working types,
      at temp 0 and temp 1 (the same normals or ring on both sides), stamps
@@ -124,19 +128,44 @@ results: 3 and 5; 7-10; 12 and 14; 16 and 18:
      walk at clusters of 1, 2, 4 and 8 blocks in turns; its clocks per
      window step by phase (a ``-DTMF_TILE_CLOCKS`` build); then the same
      epoch once more as the one-user-tile window plan on ``cell_sgd.cu``,
-     timed and held to the plain version.
+     timed and held to the plain version, with ``--yardsticks`` only (no
+     route takes that plan);
+ 22. the item-sharded runner (``PhiShardedRunner``) against its plain
+     version on the card at the Yahoo stand-in's geometry (tiles 4096x2040,
+     batch 4096, dim 128) on 2x4 tiles at its density, two item tiles a
+     shard (K = 2), both working types, 8/8 groups and eta 0.02's groups;
+ 23. the item-sharded path at the Yahoo stand-in (``bench.py:315``: nu
+     1,000,990, nv 624,961, 20M ratings of the ML-10M calibration, seed
+     11, split 90/10), dim 128, the CLI defaults: ``train_mf`` on
+     ``cuda``, 3 epochs: ``PhiShardedRunner`` every epoch, K ``cell_sgd``
+     launches each, tRMSE falling; its plan build, each epoch and eval
+     timed with CUDA events, updates/s and the run's peak device memory;
+     then, on that run's runner and plans, shard 0's sub-epoch of epoch 1
+     through the plain version and the kernel (twice), timed and held as
+     in phase 9;
+ 24. ``--resume`` through the CLI (``tpu_mf_torch.cli.main``) at phase 3's
+     configuration: the stand-in written as raw text, 2 epochs with
+     ``--result --resume``, then ``--iter 3``, which must resume round 2
+     and run epoch 3 alone; its tables and tRMSE held to phase 3's
+     uninterrupted run;
+ 25. ``train_mf`` with bfloat16 tables (``dtype="bfloat16"``) at phase 3's
+     configuration: dense every epoch, tRMSE finite and falling, printed
+     beside phase 3's float32 run.
 
 Each phase group prints its seconds. The last lines are the kernels' JSON
 summary (time, launches on the main path, bound; for the SGLD, AdaptReg
 and free-column kernels the walk the main path took, whose time and error
-the line gives), the card's name and
-power limit, and {"ok": true, "device": {...}}. Imports nothing of JAX or
+the line gives; for ``phi_shard``, ``cell_sgd.cu`` on the item-sharded
+path, the time, error and bound of one sub-epoch, shard 0 of epoch 1, and
+the shard count), the card's name and power limit, and
+{"ok": true, "device": {...}}. Imports nothing of JAX or
 of tpu_mf. Plans are built anew (``TPU_MF_PLAN_CACHE=0``): nothing is
 written outside the checkout.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import json
 import math
@@ -260,6 +289,18 @@ def window_bound(plan, rows_u, rows_v, n_real, dim):
     two dim + 2 lane scaled adds (float32 CUDA cores)."""
     return bound(window_bytes(plan, rows_u, rows_v, n_real, dim),
                  6 * n_real * (dim + 2), PEAK_F32)
+
+
+def touched_rows(plan):
+    """(user rows, item rows) that a window plan's real slots touch: the
+    rows its epoch must read and write where the plan covers only part of
+    its tables, as an item shard's sub-epoch does."""
+    import torch
+
+    real = plan.w > 0
+    gu = plan.gu.long()[:, None, None] * plan.tile_u + plan.u
+    gv = plan.gv.long()[:, :, None] * plan.tile_v + plan.v
+    return tuple(int(torch.unique(g[real]).numel()) for g in (gu, gv))
 
 
 def free_bound(plan, rows_u, rows_v, n_real, dim):
@@ -503,15 +544,61 @@ def counters():
             "packed": tpk.PackedEpochRunner, "slot": tsl.SlotEpochRunner}
 
 
-def run_main_path(torch, train, test, phase, dim, iters, use_dense):
+@contextlib.contextmanager
+def keep_built(torch, name="_mf_runner_schedule", timed=None):
+    """For the ``with`` block, keep what ``train.loop.<name>`` builds for
+    the main path (``_mf_runner_schedule``'s schedule, ``_dpmf_runner``'s
+    or ``_admf_runner``'s runner) in the yielded list, each beside the
+    seconds its build took, so that later phases run on the main path's
+    own runners and plans. With a ``timed`` list, each epoch of a kept
+    schedule's runners also appends (runner, start, end), CUDA events
+    recorded around it. Launches and counts are untouched."""
+    from tpu_mf_torch.train import loop
+
+    build, kept, wrapped = getattr(loop, name), [], []
+
+    def timed_epoch(runner, epoch):
+        def run(*args, **kwargs):
+            a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            a.record()
+            out = epoch(*args, **kwargs)
+            b.record()
+            timed.append((runner, a, b))
+            return out
+        return run
+
+    def keep(*args, **kwargs):
+        t = time.perf_counter()
+        out = build(*args, **kwargs)
+        kept.append((out, time.perf_counter() - t))
+        if timed is not None:
+            for _, runner in out:
+                runner.epoch = timed_epoch(runner, runner.epoch)
+                wrapped.append(runner)
+        return out
+
+    setattr(loop, name, keep)
+    try:
+        yield kept
+    finally:
+        setattr(loop, name, build)
+        for runner in wrapped:
+            del runner.epoch
+
+
+def run_main_path(torch, train, test, phase, dim, iters, use_dense,
+                  on_line=None, **opts):
     """train_mf on cuda with every kernel count set to 0 just before; the
-    per-epoch launch counts of every kernel read just after."""
+    per-epoch launch counts of every kernel read just after. ``on_line``
+    sees each line the run logs; ``opts`` are further TrainConfig
+    fields."""
     from tpu_mf_torch.config import TrainConfig
     from tpu_mf_torch.ops import sgd_cells as tc
+    from tpu_mf_torch.ops.phi_shard import PhiShardedRunner
     from tpu_mf_torch.train import train_mf
 
     cfg = TrainConfig(dim=dim, iters=iters, gb=train.mean_rating(),
-                      use_dense=use_dense)
+                      use_dense=use_dense, **opts)
     counts = counters()
     lines, marks = [], []
 
@@ -520,8 +607,10 @@ def run_main_path(torch, train, test, phase, dim, iters, use_dense):
         log(line)
         if line.startswith("iter#"):
             marks.append({k: c.launches for k, c in counts.items()})
+        if on_line is not None:
+            on_line(line)
 
-    for c in list(counts.values()) + [tc.cell_epoch]:
+    for c in list(counts.values()) + [tc.cell_epoch, PhiShardedRunner]:
         c.launches = 0
     walks = counts["dense_cell"].walks
     for k in walks:
@@ -536,7 +625,8 @@ def run_main_path(torch, train, test, phase, dim, iters, use_dense):
     if sum(map(sum, per_epoch.values())) != tc.cell_epoch.launches + sum(
             per_epoch["dense_cell"]):
         raise AssertionError("a window-plan launch outside the runners")
-    log(f"# phase {phase}: train_mf(dim={dim}, use_dense={use_dense}) on "
+    log(f"# phase {phase}: train_mf(dim={dim}, use_dense={use_dense}"
+        f"{''.join(f', {k}={v!r}' for k, v in opts.items())}) on "
         f"cuda, {iters} epochs in {wall:.1f} s (set-up included); launches "
         f"per epoch " + ", ".join(f"{k} {v}" for k, v in per_epoch.items())
         + f"; dense_cell launches by walk {walks}")
@@ -574,14 +664,19 @@ def phase_train(torch, train, test):
 
 
 def phase_train_cells(torch, train, test):
-    cfg, params, rm, lines, per_epoch = run_main_path(
-        torch, train, test, 4, DIM, EPOCHS, False)
+    """--no-dense at dim 64: gen-1 every epoch; returns the run's config,
+    final tables, tRMSEs and launches, its runner and the seconds its
+    schedule took to build."""
+    with keep_built(torch) as kept:
+        cfg, params, rm, lines, per_epoch = run_main_path(
+            torch, train, test, 4, DIM, EPOCHS, False)
     if not any(x.startswith(f"# gen-1 cell kernel: epochs 1..{EPOCHS}")
                for x in lines):
         raise AssertionError("the gen-1 runner did not carry the epochs")
     launches = only(per_epoch, "cell_sgd", range(1, EPOCHS + 1))
     only(per_epoch, "dense_cell", ())
-    return cfg, params, rm, launches
+    ((_, runner),), built = kept[0]
+    return cfg, params, rm, launches, runner, built
 
 
 def phase_train_rank8(torch, train, test):
@@ -599,10 +694,11 @@ def phase_train_rank8(torch, train, test):
 def phase_train_ladder(torch, train, test):
     """--no-dense at dim 8: packed until the slot envelope clears, then the
     slot phases; returns the run's config, final tables and tRMSEs, the
-    schedule's packed and slot geometries and the launches of each
-    family."""
-    cfg, params, rm, lines, per_epoch = run_main_path(
-        torch, train, test, 7, DIM8, LADDER_EPOCHS, False)
+    schedule's packed and slot geometries, the launches of each family and
+    the schedule the run built."""
+    with keep_built(torch) as kept:
+        cfg, params, rm, lines, per_epoch = run_main_path(
+            torch, train, test, 7, DIM8, LADDER_EPOCHS, False)
     packed = re.search(r"# lane-packed kernel: epochs 1\.\.(\d+), tiles "
                        r"(\d+)x(\d+), batch (\d+)", "\n".join(lines))
     slots = re.findall(r"# slot kernel( \(striped\))?: epochs (\d+)\.\.(\d+), "
@@ -618,7 +714,7 @@ def phase_train_ladder(torch, train, test):
     geo_slots = sorted({(int(sub), bool(st), int(tu), int(tv), int(ep))
                         for st, ep, _, sub, tu, tv in slots})
     return (cfg, params, rm, geo_packed, geo_slots, sum(per_epoch["packed"]),
-            sum(per_epoch["slot"]))
+            sum(per_epoch["slot"]), kept[0][0])
 
 
 def phase_compare_ladder(torch, tc, tpk, tsl, rng, geo_packed, geo_slots):
@@ -723,29 +819,23 @@ def hold(what, got, want, init, atol, phase):
 
 
 def phase_replay_ladder(torch, tc, cfg, train, test, params, rm, geo_packed,
-                        geo_slots):
-    """Phase 7's schedule rebuilt from the same initial tables and run
-    through the plain version; returns the initial tables and the
-    schedule."""
+                        geo_slots, sched):
+    """Phase 7's run replayed from the same initial tables on the schedule
+    it built (its runners and plans) through the plain version; returns
+    the initial tables."""
     from tpu_mf_torch.models.mf import init_mf, rmse
-    from tpu_mf_torch.train.loop import _mf_runner_schedule
 
     init = init_mf(train.nu, train.nv, cfg.dim, cfg.gb,
                    torch.Generator().manual_seed(cfg.seed), DEVICE)
-    t = time.perf_counter()
-    sched = _mf_runner_schedule(cfg, train, init, lambda _: None)
     (first, runner), *upcoming = sched
     slots = sorted((r.sub, r.striped, r.tile_u, r.tile_v, ep)
                    for ep, r in upcoming)
     if (first, type(runner).__name__, (runner.tile_u, runner.tile_v,
                                        runner.batch), slots) != (
             1, "PackedEpochRunner", geo_packed, geo_slots):
-        raise AssertionError("the rebuilt schedule is not phase 7's")
+        raise AssertionError("phase 7's schedule is not the one it logged")
     gb = float(init.gb)
     tables = runner.pad(init)
-    torch.cuda.synchronize()
-    log(f"# phase 9: schedule rebuilt and staged in "
-        f"{time.perf_counter() - t:.1f} s")
     ms = []
     for it in range(1, cfg.iters + 1):
         while upcoming and it >= upcoming[0][0]:
@@ -768,7 +858,7 @@ def phase_replay_ladder(torch, tc, cfg, train, test, params, rm, geo_packed,
     if not abs(rm_plain - rm[-1]) <= 1e-3:
         raise AssertionError("the ladder's tRMSE and its plain replay's "
                              "disagree")
-    return init, sched
+    return init
 
 
 def time_one_epoch(torch, tc, cfg, runner, train, test, init, it, name,
@@ -980,18 +1070,13 @@ def walk_clocks(torch, td, cells, start, eta, cfg, cap, dim, plan):
         + f"; thread 0 {sum(per[:10]):.0f}, thread 256 {sum(per[10:]):.0f}")
 
 
-def phase_time_cells(torch, tc, cfg, train, test, params_final, rm):
-    t = time.perf_counter()
-    tu, tv, b = tc.pick_cell_geometry(train)
-    r = tc.CellEpochRunner(train, tile_u=tu, tile_v=tv, batch=b,
-                           seed=cfg.seed, n_plans=2, balance=True,
-                           saturate=True, device=DEVICE)
-    built = time.perf_counter() - t
-    r.materialize()
-    torch.cuda.synchronize()
+def phase_time_cells(torch, tc, cfg, train, test, params_final, rm, r,
+                     built):
+    """Phase 4's timings on the main path's gen-1 runner ``r`` (its
+    plans), whose schedule took ``built`` seconds."""
     log(f"# phase 4: plans built in {built:.1f} s (2 plans, balance maps, "
-        f"window stats), uploaded in {time.perf_counter() - t - built:.1f} s;"
-        f" {r.plan.u.shape[0]} batches of {b}, tiles {tu}x{tv}")
+        f"window stats) by train_mf's schedule; {r.plan.u.shape[0]} batches "
+        f"of {r.batch}, tiles {r.tile_u}x{r.tile_v}")
     for it in range(1, EPOCHS + 1):
         eta = cfg.eta_at(it)
         log(f"# phase 4: epoch {it}: eta {eta:g}, groups "
@@ -1047,13 +1132,30 @@ def time_skeleton(torch, tc, cfg, r, train):
 
 def phase_time_ladder(torch, tc, cfg, train, test, init, sched):
     """One full epoch of each phase of the ladder's schedule at its first
-    epoch; returns the packed epoch's and the first slot phase's times."""
+    epoch: the packed and the first slot phase against the plain version
+    (``time_one_epoch``), the later slot phases on the kernel alone (phase
+    9's replay holds their epochs to the plain version); returns the first
+    two phases' times."""
     timed = []
-    for ep, r in sched:
+    for i, (ep, r) in enumerate(sched):
         name = ("packed" if not hasattr(r, "sub") else
                 f"slot{' striped' if r.striped else ''} sub {r.sub}")
-        timed.append(time_one_epoch(torch, tc, cfg, r, train, test, init, ep,
-                                    name)[0])
+        if i < 2:
+            timed.append(time_one_epoch(torch, tc, cfg, r, train, test, init,
+                                        ep, name)[0])
+            continue
+        ts = []
+        for _ in range(2):
+            tabs = r.pad(init)
+            a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            a.record()
+            r.epoch(tabs, cfg.eta_at(ep), cfg.lam, float(init.gb),
+                    epoch_idx=ep)
+            b.record()
+            torch.cuda.synchronize()
+            ts.append(a.elapsed_time(b))
+        log(f"# phase 10: {name} kernel: epoch ms {[round(x, 3) for x in ts]}"
+            f", rating updates/s {[round(len(train) / (x / 1e3)) for x in ts]}")
     return timed[0], timed[1]
 
 
@@ -1282,9 +1384,10 @@ def run_dpmf(torch, train, test, phase, dim):
     return cfg, state, rm, per_round, walks
 
 
-def time_dpmf_round(torch, tg, tss, cfg, train, test, phase, name):
+def time_dpmf_round(torch, tg, tss, cfg, train, test, phase, name, runner,
+                    built):
     """One full round from the initial state through the main path's
-    runner: plain version, then the grid and the tile walk in turns (grid,
+    runner (built in ``built`` seconds by ``train_dpmf``): plain version, then the grid and the tile walk in turns (grid,
     tile, tile, grid) at temp 1 (each held to max_abs_err, stamps equal),
     then both walks and the plain version at temp 0 (held as in phase 9),
     timed with CUDA events; the tile walk's clocks by phase (a clock
@@ -1294,16 +1397,12 @@ def time_dpmf_round(torch, tg, tss, cfg, train, test, phase, name):
 
     from tpu_mf_torch.models.dpmf import dp_bound
     from tpu_mf_torch.models.mf import MFParams, rmse
-    from tpu_mf_torch.train.loop import _dpmf_runner
 
     init = dp_state(torch, train, cfg.dim, cfg.gb, cfg.seed)
-    t = time.perf_counter()
-    runner = _dpmf_runner(cfg, train, init, lambda _: None, DEVICE)
     slot = isinstance(runner, tss.SlotSgldRunner)
     runner.materialize()
-    torch.cuda.synchronize()
-    log(f"# phase {phase}: {type(runner).__name__} rebuilt and staged in "
-        f"{time.perf_counter() - t:.1f} s: {runner.plan.u.shape[0]} batches"
+    log(f"# phase {phase}: {type(runner).__name__}, train_dpmf's, built in "
+        f"{built:.1f} s: {runner.plan.u.shape[0]} batches"
         + (f", sub {runner.sub}" if slot else f" of {runner.batch}")
         + f", tiles {runner.tile_u}x{runner.tile_v}")
     log_walk(phase, name, runner)
@@ -1369,14 +1468,16 @@ def time_dpmf_round(torch, tg, tss, cfg, train, test, phase, name):
 def phase_dpmf(torch, tg, tss, train, test, phase, dim, family):
     """Phases 12 and 13: the main path, then its round timed; every round
     of the main path must take the routed walk."""
-    cfg, state, _, per_round, walks = run_dpmf(torch, train, test, phase,
-                                               dim)
+    with keep_built(torch, "_dpmf_runner") as kept:
+        cfg, state, _, per_round, walks = run_dpmf(torch, train, test, phase,
+                                                   dim)
     launches = only(per_round, family, range(1, ROUNDS + 1))
     for k in per_round:
         if k != family:
             only(per_round, k, ())
+    (runner, built), = kept
     timed, route = time_dpmf_round(torch, tg, tss, cfg, train, test, phase,
-                                   family)
+                                   family, runner, built)
     if walks[route] != launches:
         raise AssertionError(f"{family}: {walks} launches by walk, not all "
                              f"{launches} on the routed {route} walk")
@@ -1711,14 +1812,12 @@ def time_admf_epoch(torch, cfg, runner, train, test, phase, name):
 def phase_admf(torch, train, valid, test, phase, dim, eta, family, runner):
     """Phases 16 and 17: the main path with ``family`` carrying every epoch,
     one launch per segment, then one epoch timed through ``runner`` (None:
-    the main path's runner, rebuilt)."""
-    from tpu_mf_torch.train.loop import _admf_runner
-
-    cfg, state, lines, per_epoch, walks = run_admf(torch, train, valid,
-                                                   test, phase, dim, eta)
+    the main path's own runner)."""
+    with keep_built(torch, "_admf_runner") as kept:
+        cfg, state, lines, per_epoch, walks = run_admf(torch, train, valid,
+                                                       test, phase, dim, eta)
     if runner is None:
-        runner = _admf_runner(cfg, train, valid, state, lambda _: None,
-                              DEVICE)
+        (runner, _), = kept
     if type(runner).__name__ != {"adreg": "AdRegCellRunner",
                                  "slot_adreg": "SlotAdRegRunner"}[family]:
         raise AssertionError(f"{type(runner).__name__} is not {family}'s")
@@ -1942,14 +2041,14 @@ def phase_mega(torch, tc, tm, tf, train, test):
     return launches, timed
 
 
-def phase_free(torch, tc, tm, tf, train, test):
+def phase_free(torch, tc, tm, tf, train, test, yardsticks=False):
     """Phase 21: ``FreeEpochRunner`` at dim 64 (tiles 128, picked batch,
     balance and saturation on, mxu_pred on) on the stand-in, two plans,
     bf16, 3 epochs from ``init_mf``'s tables at the CLI defaults on the
     routed walk; then epoch 1 on both walks and the plain version
-    (``time_free_walks``), and the same epoch once as the one-user-tile
-    window plan (``free_window_plan``) on ``csrc/cell_sgd.cu``, held to the
-    plain version too."""
+    (``time_free_walks``); with ``yardsticks`` the same epoch as the
+    one-user-tile window plan on ``csrc/cell_sgd.cu``
+    (``free_window_yardstick``)."""
     from tpu_mf_torch.config import TrainConfig
     from tpu_mf_torch.models.mf import init_mf
 
@@ -1977,6 +2076,17 @@ def phase_free(torch, tc, tm, tf, train, test):
     cap = max(1.0, 0.2 / eta)
     timed, want, walk = time_free_walks(torch, tf, cfg, r, train, test, init,
                                         it, eta, tg, pg, cap)
+    if yardsticks:
+        free_window_yardstick(torch, tc, tf, cfg, r, init, it, eta, tg, pg,
+                              cap, timed, want)
+    return launches, timed, walk
+
+
+def free_window_yardstick(torch, tc, tf, cfg, r, init, it, eta, tg, pg, cap,
+                          timed, want):
+    """Phase 21 with ``--yardsticks``: the free epoch as the one-user-tile
+    window plan (``free_window_plan``) on ``csrc/cell_sgd.cu``, which no
+    route takes; timed twice and held to the free plain version."""
     t = time.perf_counter()
     window = tc.upload_plan(tf.free_window_plan(r.plans[it % 2]), DEVICE)
     torch.cuda.synchronize()
@@ -1997,7 +2107,6 @@ def phase_free(torch, tc, tm, tf, train, test):
         f"epoch ms {[round(x, 3) for x in ms]} (free_cells {timed[0]:.3f})")
     hold("the one-user-tile window plan on cell_sgd vs the free plain "
          "version", r.trim(tabs), want, init, ATOL_CELL_FULL, 21)
-    return launches, timed, walk
 
 
 def time_free_walks(torch, tf, cfg, r, train, test, init, it, eta, tg, pg,
@@ -2075,6 +2184,314 @@ def time_free_walks(torch, tf, cfg, r, train, test, init, it, eta, tg, pg,
                        cfg.dim)), out["plain"], routed.route
 
 
+# ---- item-sharded epochs (phases 22-23), resume and bf16 tables (24-25) ----
+
+# the Yahoo stand-in of bench.py:315: the reference's Yahoo catalog
+# (src/run.py:6-9) at 20M ratings of the ML-10M calibration, seed 11
+Y_USERS, Y_ITEMS, Y_RATINGS, Y_SEED = 1_000_990, 624_961, 20_000_000, 11
+# the CLI's default rank: 256-lane rows, 18 item shards at the stand-in
+Y_DIM = 128
+
+
+def yahoo_corner(rng, tu, tv, n_gu, n_gv):
+    """Uniform ratings on n_gu x n_gv tiles of tu x tv at the Yahoo
+    stand-in's density."""
+    from tpu_mf_torch.data.coo import RatingsCOO
+
+    nu, nv = n_gu * tu, n_gv * tv
+    n = int(nu * nv * Y_RATINGS / (Y_USERS * Y_ITEMS))
+    ds = RatingsCOO(u=rng.integers(0, nu, n), v=rng.integers(0, nv, n),
+                    r=rng.uniform(0.5, 5.0, n), nu=nu, nv=nv)
+    return ds, n
+
+
+def phase_compare_sharded(torch, rng):
+    """Phase 22: ``PhiShardedRunner`` at the stand-in's geometry (tiles
+    4096x2040, batch 4096, dim 128) on 2x4 tiles at its density, a budget
+    of two item tiles a shard (K = 2), one epoch through the kernel (K
+    launches) against every shard's sub-epoch through the plain version,
+    theta chained, both working types, at 8/8 groups and at the groups eta
+    0.02 picks."""
+    from tpu_mf_torch.models.mf import params_from_numpy
+    from tpu_mf_torch.ops import sgd_cells as tc
+    from tpu_mf_torch.ops.phi_shard import PhiShardedRunner
+    from tpu_mf_torch.ops.rows import row_lanes
+
+    tu, tv, batch = 4096, 2040, 4096
+    ds, n = yahoo_corner(rng, tu, tv, 2, 4)
+    tabs = tables(rng, ds, Y_DIM)
+    for mxu in ("float32", "bfloat16"):
+        for groups in ((8, 8), (None, None)):
+            r = PhiShardedRunner(
+                ds, dim=Y_DIM, tile_u=tu, tile_v=tv, batch=batch, seed=1,
+                mxu=mxu, budget=2 * tv * row_lanes(Y_DIM) * 4,
+                theta_groups=groups[0], phi_groups=groups[1], device=DEVICE)
+            if r.n_shards != 2:
+                raise AssertionError(f"{r.n_shards} shards, want 2")
+            eta, lam, gb = 0.02, 5e-3, 3.5
+            got = r.pad(params_from_numpy(*tabs, gb, device=DEVICE))
+            want = r.pad(params_from_numpy(*tabs, gb, device=DEVICE))
+            for inner, phi_k in zip(r.inners, want[1]):
+                plain_epoch(tc, inner, (want[0], phi_k), eta, lam, gb, 0)
+            before = tc.cell_epoch.launches
+            r.epoch(got, eta, lam, gb)
+            torch.cuda.synchronize()
+            if tc.cell_epoch.launches != before + r.n_shards:
+                raise AssertionError("not one launch a shard")
+            err = max(float((a - b).abs().max())
+                      for a, b in zip(r.trim(got)[:4], r.trim(want)[:4]))
+            g = [(i.pick_theta_groups(eta), i.pick_phi_groups(eta))
+                 for i in r.inners]
+            log(f"# phase 22: phi_shard vs plain, {mxu}, groups {g}, "
+                f"{r.n_shards} shards of {r.shard_rows} items, tiles "
+                f"{tu}x{tv}, batch {batch}, "
+                f"{[i.plan.u.shape[0] for i in r.inners]} batches, dim "
+                f"{Y_DIM}, {n} ratings: max_abs_err {err:.3e} "
+                f"(atol {ATOL_CELL[mxu]:g})")
+            if not err <= ATOL_CELL[mxu]:
+                raise AssertionError(f"phi_shard disagrees ({mxu}): {err}")
+
+
+def load_yahoo():
+    from tpu_mf_torch.data.coo import synthetic_ratings
+
+    t = time.perf_counter()
+    ds = synthetic_ratings(
+        Y_USERS, Y_ITEMS, Y_RATINGS, rank=8, seed=Y_SEED,
+        noise=0.76, signal=1.0, bias_std=0.38,
+        zipf=1.0, zipf_q=50.0, zipf_u=1.0, zipf_uq=250.0,
+    )
+    train, test = ds.split(0.1, seed=1)
+    log(f"# phase 23: Yahoo-shape stand-in (nu {Y_USERS}, nv {Y_ITEMS}): "
+        f"{len(train)} train / {len(test)} test ratings in "
+        f"{time.perf_counter() - t:.1f} s")
+    return train, test
+
+
+def phase_sharded(torch, tc, train, test):
+    """Phase 23: the item-sharded path at the Yahoo stand-in, dim 128, the
+    CLI's default hyperparameters. The main path: ``train_mf`` on ``cuda``
+    for 3 epochs, which must run ``PhiShardedRunner`` with K ``cell_sgd``
+    launches every epoch and a falling tRMSE; its plan build and set-up
+    timed, each epoch timed with CUDA events around the runner's
+    ``epoch`` and each eval (trim, tRMSE) up to its log line, the peak
+    device memory of the run beside the memory held before it. Then, on
+    the runner that run built (its plans), shard 0's sub-epoch of epoch 1
+    from ``init_mf``'s tables through the plain version and the kernel
+    (twice), timed and held as in phase 9. Returns the launches, shard 0's
+    sub-epoch (ms, plain ms, bound from the rows its plan touches) and
+    error against the plain version, and the shard count."""
+    from tpu_mf_torch.models.mf import init_mf
+    from tpu_mf_torch.ops.phi_shard import PhiShardedRunner
+
+    timed, evals = [], []
+
+    def on_line(line):
+        if line.startswith("iter#"):
+            evals.append(torch.cuda.Event(enable_timing=True))
+            evals[-1].record()
+
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    with keep_built(torch, timed=timed) as kept:
+        cfg, params, rm, lines, per_epoch = run_main_path(
+            torch, train, test, 23, Y_DIM, EPOCHS, True, on_line=on_line)
+    wall = time.perf_counter() - t
+    peak = torch.cuda.max_memory_allocated()
+    (sched, built), = kept
+    (_, r), = sched
+    k_shards = r.n_shards
+    head = (f"# item table exceeds VMEM (nv={train.nv}): item-sharded fused "
+            f"epochs, {k_shards} shards")
+    if not (isinstance(r, PhiShardedRunner)
+            and any(x.startswith(head) for x in lines)):
+        raise AssertionError("the sharded runner did not carry the epochs")
+    launches = only(per_epoch, "cell_sgd", range(1, EPOCHS + 1), k_shards)
+    only(per_epoch, "dense_cell", ())
+    if PhiShardedRunner.launches != launches:
+        raise AssertionError("a cell_sgd launch outside the sharded runner")
+    if len(timed) != EPOCHS or len(evals) != EPOCHS:
+        raise AssertionError("not one timed epoch and eval an epoch")
+    iters = [x for x in lines if x.startswith("iter#")]
+    log(f"# phase 23: PhiShardedRunner: {k_shards} shards of "
+        f"{r.shard_rows} items, tiles {r.tile_u}x{r.tile_v}, batch "
+        f"{r.batch}, {[i.plan.u.shape[0] for i in r.inners[:3]]}... batches "
+        f"a shard plan, {r.n_slots} slots a plan rotation; plans built in "
+        f"{built:.1f} s (balance maps, 2 plans a shard, window stats); "
+        f"train_mf's set-up before epoch 1 (plans, upload, fused tables) "
+        f"{wall - float(iters[-1].split()[1]):.1f} s")
+    for it, ((_, a, b), c) in enumerate(zip(timed, evals), 1):
+        eta = cfg.eta_at(it)
+        ep, ev = a.elapsed_time(b), b.elapsed_time(c)
+        groups = sorted({(i.pick_theta_groups(eta), i.pick_phi_groups(eta))
+                         for i in r.inners})
+        log(f"# phase 23: epoch {it} (eta {eta:g}, groups {groups}): "
+            f"{ep:.3f} ms, {len(train) / (ep / 1e3):.0f} rating updates/s; "
+            f"eval {ev:.3f} ms ({ev / (ep + ev):.1%} of epoch and eval); "
+            f"tRMSE {rm[it - 1]:.6f}")
+    log(f"# phase 23: peak device memory of train_mf's run "
+        f"{peak / 2**30:.2f} GiB, of which {held / 2**30:.2f} GiB was held "
+        f"before it: {(peak - held) / 2**30:.2f} GiB its own")
+    log(f"# phase 23: train_mf ran PhiShardedRunner on every epoch, "
+        f"{k_shards} cell_sgd launches each; tRMSE {rm}")
+    del params
+    init = init_mf(train.nu, train.nv, Y_DIM, cfg.gb,
+                   torch.Generator().manual_seed(cfg.seed), DEVICE)
+    it, eta = 1, cfg.eta_at(1)
+    inner = r.inners[0]
+    idx = it % len(inner._dev)
+    plan = inner._dev[idx]
+    times, out = {"kernel": [], "plain": []}, {}
+    for which in ("plain", "kernel", "kernel"):
+        tabs = r.pad(init)
+        shard = (tabs[0], tabs[1][0])
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        if which == "kernel":
+            inner.epoch(shard, eta, cfg.lam, cfg.gb, epoch_idx=it)
+        else:
+            plain_epoch(tc, inner, shard, eta, cfg.lam, cfg.gb, it)
+        b.record()
+        torch.cuda.synchronize()
+        times[which].append(a.elapsed_time(b))
+        out.setdefault(which, r.trim(tabs))
+    n0 = int(inner.plans[idx].n_real)
+    for what, ts in times.items():
+        log(f"# phase 23: shard 0 {what}: sub-epoch ms "
+            f"{[round(x, 3) for x in ts]}, rating updates/s "
+            f"{[round(n0 / (x / 1e3)) for x in ts]}")
+    err = hold(f"shard 0 of epoch {it} (eta {eta:g}, groups "
+               f"{inner.pick_theta_groups(eta)}/{inner.pick_phi_groups(eta)}"
+               f", {plan.u.shape[0]} batches, {n0} ratings), kernel vs "
+               "plain", out["kernel"], out["plain"], init, ATOL_CELL_FULL, 23)
+    rows_u, rows_v = touched_rows(plan)
+    p = inner.plan
+    log(f"# phase 23: shard 0's plan touches {rows_u} of {p.n_gu * p.tile_u}"
+        f" user rows and {rows_v} of {p.n_gv * p.tile_v} item rows")
+    timed = (median(times["kernel"]), median(times["plain"]),
+             window_bound(plan, rows_u, rows_v, n0, Y_DIM))
+    return launches, timed, err, k_shards
+
+
+def _raw_lines(chunk):
+    """Rows (u, v, r) as the reference's raw ``u,v,r,t`` lines; r with 9
+    significant digits, which a float32 survives exactly."""
+    import io
+
+    import numpy as np
+
+    u, v, r = chunk
+    buf = io.StringIO()
+    np.savetxt(buf, np.column_stack([u, v, r.astype(np.float64),
+                                     np.zeros(len(u))]),
+               fmt=["%d", "%d", "%.9g", "%d"], delimiter=",")
+    return buf.getvalue()
+
+
+def write_raw(path, ds, workers=8):
+    """``ds`` in the reference's raw text format (``n`` then ``u,v,r,t``
+    lines, what ``read_raw`` reads), formatted by ``workers`` processes."""
+    import multiprocessing as mp
+    from concurrent.futures import ProcessPoolExecutor
+
+    import numpy as np
+
+    n = len(ds)
+    cuts = np.linspace(0, n, 4 * workers + 1).astype(int)
+    chunks = [(ds.u[a:b], ds.v[a:b], ds.r[a:b])
+              for a, b in zip(cuts[:-1], cuts[1:])]
+    with ProcessPoolExecutor(workers, mp_context=mp.get_context("spawn")
+                             ) as pool, open(path, "w") as f:
+        f.write(f"{n}\n")
+        for text in pool.map(_raw_lines, chunks):
+            f.write(text)
+
+
+def run_cli(argv):
+    """``tpu_mf_torch.cli.main(argv)``, its standard output echoed and
+    returned as lines."""
+    import io
+
+    from tpu_mf_torch.cli import main as cli_main
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli_main(argv)
+    lines = buf.getvalue().splitlines()
+    for line in lines:
+        log(line)
+    if rc != 0:
+        raise AssertionError(f"the CLI exited {rc}: {argv}")
+    return lines
+
+
+def phase_resume(torch, cfg, train, test, params, rm):
+    """Phase 24: ``--resume`` through the CLI at ML-10M shape, dim 64 on
+    ``cuda`` (the dense kernel): the stand-in written as raw text, 2 epochs
+    with ``--result P --resume``, then ``--iter 3``, which must print
+    ``# resumed from round 2`` and run epoch 3 alone; its {P}_3 tables and
+    tRMSE held to phase 3's uninterrupted 3 epochs of the same
+    configuration (the kernel's ATOL_FULL, REL_FULL and a tRMSE within
+    1e-3)."""
+    from tpu_mf_torch.io.checkpoint import load_mf_binary
+
+    with tempfile.TemporaryDirectory() as d:
+        t = time.perf_counter()
+        paths = [os.path.join(d, f"{x}.txt") for x in ("train", "test")]
+        write_raw(paths[0], train)
+        write_raw(paths[1], test)
+        log(f"# phase 24: stand-in written as raw text in "
+            f"{time.perf_counter() - t:.1f} s")
+        prefix = os.path.join(d, "model")
+        args = ["--train", paths[0], "--test", paths[1], "--nu",
+                str(train.nu), "--nv", str(train.nv), "--dim", str(DIM),
+                "--bias", repr(cfg.gb), "--result", prefix, "--resume",
+                "--device", DEVICE, "--iter", "2"]
+        t = time.perf_counter()
+        run_cli(args)
+        t2 = time.perf_counter()
+        states = sorted(os.listdir(d))
+        lines = run_cli(args + ["--iter", "3"])
+        log(f"# phase 24: CLI runs of 2 epochs and resumed to 3 in "
+            f"{t2 - t:.1f} s and {time.perf_counter() - t2:.1f} s (reads and "
+            f"plans included); files after the first run {states}")
+        if f"# resumed from round 2 ({prefix}.state)" not in lines:
+            raise AssertionError("the second run did not resume round 2")
+        iters = [x for x in lines if x.startswith("iter#")]
+        if [x.split("\t")[0] for x in iters] != ["iter#3"]:
+            raise AssertionError(f"the resumed run ran {iters}")
+        got, _ = load_mf_binary(f"{prefix}_3", gb=cfg.gb, device=DEVICE)
+    from tpu_mf_torch.models.mf import init_mf
+
+    init = init_mf(train.nu, train.nv, DIM, cfg.gb,
+                   torch.Generator().manual_seed(cfg.seed), DEVICE)
+    hold("the resumed CLI run's epoch 3 vs phase 3's uninterrupted run",
+         got, params, init, ATOL_FULL, 24)
+    rm3 = float(iters[0].split("tRMSE=")[1])
+    log(f"# phase 24: tRMSE after epoch 3: resumed {rm3:.6f}, "
+        f"uninterrupted {rm[-1]:.6f}")
+    if not abs(rm3 - rm[-1]) <= 1e-3:
+        raise AssertionError("the resumed run's tRMSE disagrees")
+
+
+def phase_bf16(torch, train, test, rm):
+    """Phase 25: ``train_mf`` with bfloat16 tables (``--dtype bfloat16``)
+    at dim 64, 3 epochs on ``cuda``: the dense kernel every epoch, float32
+    tables out (the fused kernels widen the rows, as ``tpu_mf``'s), tRMSE
+    finite and falling, printed beside phase 3's float32 run."""
+    _, params, brm, _, per_epoch = run_main_path(
+        torch, train, test, 25, DIM, EPOCHS, True, dtype="bfloat16")
+    only(per_epoch, "dense_cell", range(1, EPOCHS + 1))
+    if params.theta.dtype != torch.float32:
+        raise AssertionError(f"tables came back {params.theta.dtype}")
+    log(f"# phase 25: tRMSE by epoch, bf16 tables {brm}, float32 tables "
+        f"(phase 3) {rm}")
+    if not abs(brm[-1] - rm[-1]) <= 1e-2:
+        raise AssertionError("bf16 tables end far from float32's")
+
+
 def entry(name, replaces, launches, err, timed, source=None, walk=None):
     """A kernel's line of the JSON summary; ``walk`` names the walk of
     ``csrc/sgld_cells.cu``, ``csrc/adreg_cells.cu`` or ``csrc/free_cells.cu``
@@ -2094,24 +2511,34 @@ def entry(name, replaces, launches, err, timed, source=None, walk=None):
 
 
 # phases that run together: a later one reads what the first one made
-PHASE_GROUPS = ((1,), (2,), (3, 5), (4,), (6,), (7, 8, 9, 10), (11,),
-                (12, 14), (13,), (15,), (16, 18), (17,), (19,), (20,), (21,))
+PHASE_GROUPS = ((1,), (2,), (3, 5, 24, 25), (4,), (6,), (7, 8, 9, 10),
+                (11,), (12, 14), (13,), (15,), (16, 18), (17,), (19,), (20,),
+                (21,), (22,), (23,))
 
 
-def parse_phases(argv):
-    """The phases to run: every one without ``--phases``, else the listed
-    ones ("1,19-21"), each widened to its group, with phase 1 always."""
+def parse_args(argv):
+    """(the phases to run, whether to time the yardsticks): every phase
+    without ``--phases``, else the listed ones ("1,19-21"), each widened to
+    its group, with phase 1 always."""
     import argparse
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=None,
                     help="comma-separated phases or ranges, e.g. 1,19-21")
+    ap.add_argument("--yardsticks", action="store_true",
+                    help="also time plans no route takes (phase 21: the "
+                         "free epoch as a one-user-tile window plan on "
+                         "cell_sgd.cu)")
     args = ap.parse_args(argv)
+    return parse_phases(ap, args.phases), args.yardsticks
+
+
+def parse_phases(ap, spec):
     every = {p for g in PHASE_GROUPS for p in g}
-    if args.phases is None:
+    if spec is None:
         return every
     asked = set()
-    for part in args.phases.split(","):
+    for part in spec.split(","):
         lo, _, hi = part.partition("-")
         asked.update(range(int(lo), int(hi or lo) + 1))
     if not asked <= every:
@@ -2120,7 +2547,7 @@ def parse_phases(argv):
 
 
 def main(argv=None) -> int:
-    phases = parse_phases(argv)
+    phases, yardsticks = parse_args(argv)
     import torch
 
     if not torch.cuda.is_available():
@@ -2172,14 +2599,18 @@ def main(argv=None) -> int:
         cfg, params, rm, launches = phase_train(torch, train, test)
         dense_t = phase_time(torch, td, cfg, train, test, params, rm)
         phase_checkpoint(torch, cfg, params)
-        lap("3, 5")
+        phase_resume(torch, cfg, train, test, params, rm)
+        phase_bf16(torch, train, test, rm)
+        lap("3, 5, 24, 25")
         if want(2):
             ent["dense_cell"] = entry(
                 "dense_cell", "tpu_mf/ops/pallas_sgd_dense.py:239", launches,
                 errs["wavefront", "bfloat16"], dense_t)
     if want(4):
-        ccfg, cparams, crm, claunches = phase_train_cells(torch, train, test)
-        cell_t = phase_time_cells(torch, tc, ccfg, train, test, cparams, crm)
+        (ccfg, cparams, crm, claunches, crunner,
+         cbuilt) = phase_train_cells(torch, train, test)
+        cell_t = phase_time_cells(torch, tc, ccfg, train, test, cparams, crm,
+                                  crunner, cbuilt)
         lap("4")
         if want(2):
             ent["cell_sgd"] = entry(
@@ -2190,13 +2621,12 @@ def main(argv=None) -> int:
         lap("6")
     if want(7):
         (lcfg, lparams, lrm, geo_packed, geo_slots, plaunches,
-         slaunches) = phase_train_ladder(torch, train, test)
+         slaunches, sched) = phase_train_ladder(torch, train, test)
         lerrs = phase_compare_ladder(torch, tc, tpk, tsl,
                                      np.random.default_rng(2), geo_packed,
                                      geo_slots)
-        init, sched = phase_replay_ladder(torch, tc, lcfg, train, test,
-                                          lparams, lrm, geo_packed,
-                                          geo_slots)
+        init = phase_replay_ladder(torch, tc, lcfg, train, test, lparams,
+                                   lrm, geo_packed, geo_slots, sched)
         packed_t, slot_t = phase_time_ladder(torch, tc, lcfg, train, test,
                                              init, sched)
         lap("7-10")
@@ -2266,20 +2696,35 @@ def main(argv=None) -> int:
                 mf_errs["mega"]["bfloat16"], mega_t, cell_src)
     if want(21):
         free_launches, free_t, free_walk = phase_free(torch, tc, tm, tf,
-                                                      train, test)
+                                                      train, test, yardsticks)
         lap("21")
         if want(19):
             ent["free"] = entry(
                 "free", "tpu_mf/ops/pallas_sgd_free.py:183", free_launches,
                 mf_errs["free"][free_walk, "bfloat16"], free_t, free_src,
                 free_walk)
+    if want(22):
+        phase_compare_sharded(torch, np.random.default_rng(6))
+        lap("22")
+    if want(23):
+        ytrain, ytest = load_yahoo()
+        shard_launches, shard_t, shard_err, k_shards = phase_sharded(
+            torch, tc, ytrain, ytest)
+        del ytrain, ytest
+        lap("23")
+        # ms, plain_ms, max_abs_err and the bound are of one full-size
+        # sub-epoch (shard 0 of epoch 1), launches of the main path
+        ent["phi_shard"] = dict(entry(
+            "phi_shard", "tpu_mf/ops/pallas_sgd.py:412", shard_launches,
+            shard_err, shard_t, cell_src), shards=k_shards)
     bad = sorted(m for m in sys.modules
                  if m.split(".")[0] in ("jax", "jaxlib", "tpu_mf"))
     if bad:
         raise AssertionError(f"the port imported JAX or tpu_mf: {bad[:5]}")
     log(f"# phases {sorted(phases)}: {time.perf_counter() - t_start:.1f} s")
-    kinds = [k for k in ("dense_cell", "cell_sgd", "packed", "slot", "sgld",
-                         "slot_sgld", "adreg", "slot_adreg", "mega", "free")
+    kinds = [k for k in ("dense_cell", "cell_sgd", "phi_shard", "packed",
+                         "slot", "sgld", "slot_sgld", "adreg", "slot_adreg",
+                         "mega", "free")
              if k in ent]
     log(json.dumps({"kernels": [ent[k] for k in kinds]}))
     log(card)

@@ -263,7 +263,8 @@ def test_admf_fused_loop_matches_tpu_mf_loop_body(kind):
 def test_train_admf_cpu_batched_path():
     """train_admf on CPU tensors runs the batched path: finite iter# lines,
     tRMSE falling, lambdas >= 0 and moved, the caller's state left as it
-    was; the unported modes raise."""
+    was; --mesh > 1 (not ported) raises; bfloat16 tables keep their
+    storage dtype, and --resume without a result prefix trains afresh."""
     tr, va, te = (port(x) for x in data())
     cfg = TrainConfig(alg="admf", dim=8, iters=3, eta=0.02, eta_reg=0.05,
                       batch_size=512, gb=tr.mean_rating())
@@ -277,10 +278,16 @@ def test_train_admf_cpu_batched_path():
     assert torch.equal(state.params.theta, before)
     lams = [float(getattr(out, k)) for k in LAMBDAS]
     assert min(lams) >= 0 and max(abs(x - cfg.lam) for x in lams) > 1e-5
-    for opt in (dict(mesh=2), dict(dtype="bfloat16"), dict(resume=True)):
-        with pytest.raises(NotImplementedError):
-            train_admf(TrainConfig(alg="admf", dim=8, iters=1, **opt), tr,
-                       va, device="cpu")
+    with pytest.raises(NotImplementedError):
+        train_admf(TrainConfig(alg="admf", dim=8, iters=1, mesh=2), tr, va,
+                   device="cpu")
+    for opt in (dict(dtype="bfloat16"), dict(resume=True)):
+        one = train_admf(TrainConfig(alg="admf", dim=8, iters=1, eta=0.02,
+                                     batch_size=512, gb=tr.mean_rating(),
+                                     **opt), tr, va, device="cpu")
+        assert one.params.theta.dtype == getattr(
+            torch, opt.get("dtype", "float32"))
+        assert one.theta_old.dtype == one.params.theta.dtype
 
 
 def cli_args(tmp_path):

@@ -13,7 +13,7 @@ import pytest
 import torch
 
 from tpu_mf_torch.config import TrainConfig
-from tpu_mf_torch.data.coo import synthetic_ratings
+from tpu_mf_torch.data.coo import RatingsCOO, synthetic_ratings
 from tpu_mf_torch.models.mf import params_from_numpy
 from tpu_mf_torch.ops import adreg_cells as tac
 from tpu_mf_torch.ops import adreg_slot as tas
@@ -23,6 +23,7 @@ from tpu_mf_torch.ops import sgd_free as tf
 from tpu_mf_torch.ops import sgd_mega as tm
 from tpu_mf_torch.ops import sgd_packed as tpk
 from tpu_mf_torch.ops import sgd_slot as tsl
+from tpu_mf_torch.ops.phi_shard import PhiShardedRunner
 from tpu_mf_torch.train import train_mf
 
 
@@ -203,6 +204,85 @@ def test_train_mf_no_dense_runs_gen1(cuda):
     assert td.dense_epoch.launches == dense_before
     rm = [float(x.split("tRMSE=")[1]) for x in log if "tRMSE=" in x]
     assert np.all(np.isfinite(rm)) and rm[-1] < rm[0], rm
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mxu,atol", [("float32", 1e-4), ("bfloat16", 2e-3)])
+def test_phi_sharded_runner_matches_reference(cuda, mxu, atol):
+    """One item-sharded epoch at the Yahoo stand-in's tiles (4096 x 2040,
+    batch 4096) on a corner of 2 x 3 tiles at 100x its rating density,
+    one item tile a shard (3 shards, 3 launches), against each shard's
+    sub-epoch through the plain version on the card, theta chained."""
+    rng = np.random.default_rng(8)
+    nu, nv, n = 2 * 4096, 3 * 2040, 150_000
+    ds = RatingsCOO(u=rng.integers(0, nu, n), v=rng.integers(0, nv, n),
+                       r=rng.uniform(1, 5, n), nu=nu, nv=nv)
+    r = PhiShardedRunner(ds, dim=128, tile_u=4096, tile_v=2040, batch=4096,
+                         budget=2040 * 256 * 4, mxu=mxu, device=cuda)
+    assert r.n_shards == 3
+    tabs = np_tables(nu, nv, 128, seed=9, gb=3.0)
+    got = r.pad(params_from_numpy(*tabs, device=cuda))
+    want = r.pad(params_from_numpy(*tabs, device=cuda))
+    eta = 0.02
+    for inner, phi_k in zip(r.inners, want[1]):
+        tc.cell_epoch_reference(want[0], phi_k, inner._dev[0], eta, 0.005,
+                                3.0, max(1.0, 0.2 / eta), 128,
+                                inner.pick_theta_groups(eta),
+                                inner.pick_phi_groups(eta), inner.work_dtype,
+                                inner.saturate, inner.mxu_pred)
+    before = tc.cell_epoch.launches
+    r.epoch(got, eta, 0.005, 3.0)
+    torch.cuda.synchronize()
+    assert tc.cell_epoch.launches == before + 3
+    err = max(float((a - b).abs().max())
+              for a, b in zip(r.trim(got), r.trim(want)))
+    assert err <= atol, err
+    start = r.trim(r.pad(params_from_numpy(*tabs, device=cuda)))
+    assert float((r.trim(got).phi - start.phi).abs().max()) > 1e-3
+
+
+# per algorithm: TrainConfig options and the trainer
+RESUME_RUNS = {
+    "mf": dict(dim=64, eta=0.005),
+    "dpmf": dict(alg="dpmf", dim=8, eta=2e-5, hyperb=1000.0),
+    "admf": dict(alg="admf", dim=8, eta=0.005, eta_reg=0.05),
+}
+
+
+def train_any(cfg, tr, te, device, log=lambda _: None):
+    from tpu_mf_torch.train import train_admf, train_dpmf
+
+    if cfg.alg == "dpmf":
+        return train_dpmf(cfg, tr, te, log=log, device=device).params
+    if cfg.alg == "admf":
+        return train_admf(cfg, tr, te, te, log=log, device=device).params
+    return train_mf(cfg, tr, te, log=log, device=device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("alg", sorted(RESUME_RUNS))
+def test_resume_round_trip_on_gpu(cuda, tmp_path, alg):
+    """Each algorithm on the card (dense at dim 64; slot SGLD and the
+    AdaptReg kernel at dim 8): 2 rounds with --resume, then resumed to 3,
+    against 3 uninterrupted rounds: the resumed run starts at round 3 and
+    ends within one bf16 step of an update (the kernels' atomics sum in no
+    fixed order; the fused AdaptReg runners read no shadows)."""
+    ds = synthetic_ratings(600, 400, 30000, rank=3, noise=0.2, seed=1)
+    tr, te = ds.split(0.1, seed=2)
+    opts = dict(RESUME_RUNS[alg], gb=tr.mean_rating(), resume=True)
+    want = train_any(TrainConfig(iters=3, result=str(tmp_path / "w"),
+                                 **opts), tr, te, cuda)
+    part = str(tmp_path / "p")
+    train_any(TrainConfig(iters=2, result=part, **opts), tr, te, cuda)
+    log = []
+    got = train_any(TrainConfig(iters=3, result=part, **opts), tr, te, cuda,
+                    log.append)
+    assert f"# resumed from round 2 ({part}.state)" in log
+    rounds = [x.split("\t")[0] for x in log
+              if x.startswith(("iter#", "round #"))]
+    assert rounds == ["round #3" if alg == "dpmf" else "iter#3"]
+    for a, b in zip(got[:4], want[:4]):
+        assert float((a.float() - b.float()).abs().max()) <= 2e-3
 
 
 LADDER = {

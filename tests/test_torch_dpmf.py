@@ -284,7 +284,8 @@ def test_cli_dpmf_cpu_writes_reference_checkpoint(tmp_path, capsys,
 def test_train_dpmf_cpu_batched_path():
     """train_dpmf on CPU tensors runs the batched path at temp 1: finite
     round lines, tRMSE falling, counters reset by the noise flush, the
-    caller's state left as it was; the unported modes raise."""
+    caller's state left as it was; --mesh > 1 (not ported) raises, and
+    bfloat16 tables keep their storage dtype."""
     from tpu_mf_torch.models.dpmf import init_dpmf
 
     _, _, tr, te = data()
@@ -298,10 +299,14 @@ def test_train_dpmf_cpu_batched_path():
     assert len(rm) == 3 and np.all(np.isfinite(rm)) and rm[-1] < rm[0], log
     assert torch.equal(state.params.theta, before)
     assert int(out.gcount) == 0 and not out.gcountu.any()
-    for opt in (dict(mesh=2), dict(dtype="bfloat16")):
-        with pytest.raises(NotImplementedError):
-            train_dpmf(TrainConfig(alg="dpmf", dim=8, iters=1, **opt), tr,
-                       device="cpu")
+    with pytest.raises(NotImplementedError):
+        train_dpmf(TrainConfig(alg="dpmf", dim=8, iters=1, mesh=2), tr,
+                   device="cpu")
+    bf = train_dpmf(TrainConfig(alg="dpmf", dim=8, iters=1, eta=2e-5,
+                                hyperb=1000.0, gb=tr.mean_rating(),
+                                dtype="bfloat16"), tr, device="cpu")
+    assert bf.params.theta.dtype == torch.bfloat16
+    assert bool(torch.isfinite(bf.params.theta.float()).all())
 
 
 def test_cli_dpmf_defaults_to_cuda(tmp_path):

@@ -141,25 +141,26 @@ SCHEDULES = {
                                           use_dense=False),
                           "# slot kernel staleness envelope exceeded"),
     "item_sharded": (big_catalog, dict(dim=64),
-                     "# item-sharded kernel (ops/phi_shard.py) not yet "
-                     "ported (ROADMAP Queue 1 item 6): epochs 1..3 use the "
-                     "batched path"),
+                     "# item table exceeds VMEM (nv=140000): item-sharded "
+                     "fused epochs, 2 shards, tiles 512x2040, batch 4096"),
 }
 # runner families: what tpu_mf runs, and what the port runs in its place
 KINDS = {"PallasEpochRunner": "gen-1", "CellEpochRunner": "gen-1",
          "DenseEpochRunner": "dense", "PackedEpochRunner": "packed",
-         "SlotEpochRunner": "slot", "PhiShardedRunner": "batched",
+         "SlotEpochRunner": "slot", "PhiShardedRunner": "sharded",
          "BatchedRunner": "batched"}
 
 
 def phases(sched):
-    """[(first epoch, family, tile_u, tile_v, batch, sub, striped)]."""
+    """[(first epoch, family, tile_u, tile_v, batch, sub, striped,
+    shards)]."""
     out = []
     for ep, r in sched:
         kind = KINDS[type(r).__name__]
-        geom = ((None,) * 5 if kind == "batched" else
+        geom = ((None,) * 6 if kind == "batched" else
                 (r.tile_u, r.tile_v, getattr(r, "batch", None),
-                 getattr(r, "sub", None), getattr(r, "striped", None)))
+                 getattr(r, "sub", None), getattr(r, "striped", None),
+                 getattr(r, "n_shards", None)))
         out.append((ep, kind) + geom)
     return out
 
@@ -347,15 +348,17 @@ def test_cli_metrics_and_trace(tmp_path):
 
 def test_port_runs_without_jax(tmp_path):
     """A fresh interpreter in which tpu_mf cannot be imported runs the CPU
-    slice through the CLI (--alg mf, --alg dpmf and --alg admf) and the
-    fused dim-8 schedule (packed, then dense), a fused AdaptReg epoch pair
-    and one mega and one free-column epoch on CPU tensors, and imports
+    slice through the CLI (--alg mf, --alg dpmf and --alg admf, and --alg
+    mf with --resume: 2 epochs, then resumed to 3) and the fused dim-8
+    schedule (packed, then dense), a fused AdaptReg epoch pair, one mega,
+    one free-column and one item-sharded epoch on CPU tensors, and imports
     neither JAX nor any module of tpu_mf."""
     args = write_data(tmp_path) + ["--device", "cpu"]
     dp_args = args + ["--alg", "dpmf", "--eta", "2e-5", "--hyperb", "1000",
                       "--result", str(tmp_path / "dp")]
     ad_args = args + ["--alg", "admf", "--valid", str(tmp_path / "test.csv"),
                       "--result", str(tmp_path / "ad")]
+    rs_args = args + ["--result", str(tmp_path / "rs"), "--resume"]
     code = f"""
 import sys
 sys.modules["tpu_mf"] = None  # any import of the JAX package fails
@@ -368,6 +371,8 @@ import torch
 assert main({args!r}) == 0
 assert main({dp_args!r}) == 0
 assert main({ad_args!r}) == 0
+assert main({rs_args!r}) == 0
+assert main({rs_args!r} + ["--iter", "3"]) == 0
 tr, te = synthetic_ratings(200, 150, 6000, rank=3, noise=0.2,
                            seed=0).split(0.1, seed=1)
 cfg = TrainConfig(dim=8, iters=2, eta=0.04, gam=2.0, gb=tr.mean_rating())
@@ -393,6 +398,14 @@ for runner in (MegaEpochRunner(tr, dim=8, tile_u=64, tile_v=64, batch=256,
     assert out.theta.shape == params.theta.shape
     assert bool(torch.isfinite(out.theta).all())
     assert not torch.equal(out.theta, params.theta)
+from tpu_mf_torch.ops.phi_shard import PhiShardedRunner
+sr = PhiShardedRunner(tr, dim=8, tile_u=64, tile_v=64, batch=256,
+                      budget=128 * 128 * 4, nb_round=4, mxu="float32",
+                      device="cpu")
+assert sr.n_shards >= 2
+out = sr.trim(sr.epoch(sr.pad(params), 0.01, cfg.lam, cfg.gb))
+assert bool(torch.isfinite(out.phi).all())
+assert not torch.equal(out.phi, params.phi)
 bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
        or m == "tpu_mf" or m.startswith("tpu_mf.")]
 assert bad == ["tpu_mf"] and sys.modules["tpu_mf"] is None, bad
@@ -401,7 +414,10 @@ assert bad == ["tpu_mf"] and sys.modules["tpu_mf"] is None, bad
     proc = subprocess.run([sys.executable, "-c", code], cwd=tmp_path, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr[-2000:]
-    assert proc.stdout.count("iter#2") == 4
+    assert proc.stdout.count("iter#2") == 5
+    assert proc.stdout.count("iter#3") == 1
+    assert f"# resumed from round 2 ({tmp_path / 'rs'}.state)" in proc.stdout
+    assert (tmp_path / "rs_3").stat().st_size > 0
     assert "# lane-packed kernel: epochs 1..1" in proc.stdout
     assert proc.stdout.count("round #2\t") == 1
     assert (tmp_path / "dp_2").stat().st_size > 0

@@ -105,6 +105,9 @@ def main(argv=None) -> int:
         print("Note that train_data is not optional!", file=sys.stderr)
         build_parser().print_help()
         return 1
+    if cfg.resume and not cfg.result:
+        print("--resume requires --result (checkpoint prefix)", file=sys.stderr)
+        return 1
     why = [_NOT_PORTED[k] for k, on in (
         ("stream", args.stream), ("measure", cfg.measure == 1)) if on]
     if why:
@@ -154,13 +157,14 @@ def _main_dpmf(cfg, train_ds, test_ds, device) -> int:
 
     from tpu_mf_torch.io.checkpoint import load_dpmf_hyper, save_dpmf_binary
     from tpu_mf_torch.models.dpmf import init_dpmf
-    from tpu_mf_torch.train.loop import train_dpmf
+    from tpu_mf_torch.train.loop import _storage_dtype, train_dpmf
 
     state0 = None
     if cfg.model:
         lr, lub, lvb, lu, lv = load_dpmf_hyper(cfg.model)
         state0 = init_dpmf(train_ds, cfg.dim, cfg.gb,
-                           torch.Generator().manual_seed(cfg.seed), device)
+                           torch.Generator().manual_seed(cfg.seed), device,
+                           dtype=_storage_dtype(cfg))
         f32 = dict(dtype=torch.float32, device=device)
         state0 = state0._replace(
             lambda_r=torch.tensor(lr, **f32),

@@ -14,7 +14,11 @@ model.cc:124-195) the precisions in place of lambda:
     float lambda_r, lambda_ub, lambda_vb, float lambda_u[dim],
     float lambda_v[dim], then the tables as above;
 
-and a native npz of the tables.
+and a native npz of the tables and any extra state (``save_npz`` /
+``load_npz``, keys theta, phi, bu, bv, gb and the extras' own), which
+``io/resume.py`` writes each round. Tables are written as float32 whatever
+their storage dtype (``params_to_numpy``, the part ``tpu_mf``'s
+``_params_to_host`` plays), so either package reads the other's files.
 """
 
 from __future__ import annotations
@@ -106,7 +110,22 @@ def load_dpmf_binary(path: str, gb: float = 2.76,
                               device), hyper)
 
 
+_TABLES = ("theta", "phi", "bu", "bv", "gb")
+
+
 def save_npz(path: str, params: MFParams, **extra) -> None:
-    """Native checkpoint of the tables (and any extra arrays)."""
+    """Native checkpoint of the tables, float32 (bf16 tables widened), and
+    any extra arrays."""
     theta, phi, bu, bv, gb = params_to_numpy(params)
     np.savez(path, theta=theta, phi=phi, bu=bu, bv=bv, gb=gb, **extra)
+
+
+def load_npz(path: str, device: torch.device | str = "cuda"):
+    """(params on ``device``, {extra name: numpy array}) of a native
+    checkpoint; the tables as stored (float32)."""
+    with np.load(path, allow_pickle=False) as z:
+        params = MFParams(*(torch.as_tensor(z[k]).to(device)
+                            for k in _TABLES[:4]),
+                          torch.as_tensor(np.float32(z["gb"])).to(device))
+        extras = {k: z[k] for k in z.files if k not in _TABLES}
+    return params, extras

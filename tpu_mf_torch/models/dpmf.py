@@ -66,11 +66,13 @@ def inverse_frequency(train_ds) -> tuple[np.ndarray, np.ndarray]:
 
 def init_dpmf(train_ds, dim: int, gb: float, generator: torch.Generator,
               device: torch.device | str = "cuda",
-              scale: float = 1e-2) -> DPMFState:
-    """``init_mf``'s tables, the initial precisions, the inverse-frequency
-    weights of ``train_ds`` and zeroed counters, on ``device``."""
+              scale: float = 1e-2,
+              dtype: torch.dtype = torch.float32) -> DPMFState:
+    """``init_mf``'s tables (in the storage ``dtype``), the initial
+    precisions, the inverse-frequency weights of ``train_ds`` and zeroed
+    counters, on ``device``."""
     nu, nv = train_ds.nu, train_ds.nv
-    params = init_mf(nu, nv, dim, gb, generator, device, scale)
+    params = init_mf(nu, nv, dim, gb, generator, device, scale, dtype)
     ur, vr = inverse_frequency(train_ds)
 
     def f32(x):

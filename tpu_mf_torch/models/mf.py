@@ -17,7 +17,8 @@ import torch
 
 
 class MFParams(NamedTuple):
-    """theta (nu, dim), phi (nv, dim), bu (nu,), bv (nv,), gb () — float32."""
+    """theta (nu, dim), phi (nv, dim), bu (nu,), bv (nv,), gb () — float32,
+    or bfloat16 storage (``--dtype bfloat16``)."""
 
     theta: torch.Tensor
     phi: torch.Tensor
@@ -34,21 +35,23 @@ def init_mf(
     generator: torch.Generator,
     device: torch.device | str,
     scale: float = 1e-2,
+    dtype: torch.dtype = torch.float32,
 ) -> MFParams:
     """Gaussian(0, scale) init of all tables (reference: model.cc:22-33).
 
-    Draws on the CPU from ``generator`` and moves the tables to ``device``,
-    so one seed gives the same tables on every device."""
+    Draws float32 on the CPU from ``generator``, rounds to the storage
+    ``dtype`` (gb too, as ``tpu_mf`` stores it) and moves the tables to
+    ``device``, so one seed gives the same tables on every device."""
     def normal(*shape):
         x = torch.randn(*shape, generator=generator, dtype=torch.float32)
-        return (x * scale).to(device)
+        return (x * scale).to(dtype).to(device)
 
     return MFParams(
         theta=normal(nu, dim),
         phi=normal(nv, dim),
         bu=normal(nu),
         bv=normal(nv),
-        gb=torch.tensor(gb, dtype=torch.float32, device=device),
+        gb=torch.tensor(gb, dtype=dtype, device=device),
     )
 
 
@@ -70,9 +73,13 @@ def params_to_numpy(params: MFParams):
 
 
 def predict(params: MFParams, u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """theta_u . phi_v + bu_u + bv_v + gb for a batch of (user, item) pairs."""
-    return ((params.theta[u] * params.phi[v]).sum(-1)
-            + params.bu[u] + params.bv[v] + params.gb)
+    """theta_u . phi_v + bu_u + bv_v + gb for a batch of (user, item) pairs,
+    float32: products in the storage dtype, sums in float32 (as
+    ``tpu_mf``)."""
+    f32 = torch.float32
+    return ((params.theta[u] * params.phi[v]).to(f32).sum(-1)
+            + params.bu[u].to(f32) + params.bv[v].to(f32)
+            + params.gb.to(f32))
 
 
 def calc_mse(params: MFParams, u, v, r, chunk: int = 1 << 20) -> float:

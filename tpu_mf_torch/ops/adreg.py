@@ -20,7 +20,10 @@ Per batch of B ratings, against batch-start values:
 act is the identity (least squares) or the logistic sigmoid (--loss 1).
 This is the CPU path and the ``--no-pallas`` path. The K validation
 indices of each batch are an argument, so that tests can feed ``tpu_mf``'s
-draws; tables and shadows are updated in place.
+draws; tables and shadows are updated in place. On bfloat16 tables rows
+are gathered and every prediction computed in float32; shadows, decay
+factors and deltas are rounded to the storage dtype before they are
+written, scale or add, as ``tpu_mf`` does.
 """
 
 from __future__ import annotations
@@ -30,7 +33,11 @@ from typing import NamedTuple, Tuple
 import torch
 
 from tpu_mf_torch.models.admf import AdaptRegState
-from tpu_mf_torch.ops.common import decay_factors, occurrence_stats
+from tpu_mf_torch.ops.common import (
+    decay_factors,
+    occurrence_stats,
+    scatter_add,
+)
 
 Batch = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
 Valid = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
@@ -60,14 +67,16 @@ def adreg_batch_update(state: AdaptRegState, batch: Batch, valid: Valid,
     eta, eta_reg = torch.tensor([hyper.eta, hyper.eta_reg],
                                 dtype=torch.float32, device=dev)
     real = w > 0
-    t, p, bu_g, bv_g = theta[u], phi[v], bu[u], bv[v]
+    f32 = torch.float32
+    t, p, bu_g, bv_g = (x.to(f32) for x in (theta[u], phi[v], bu[u], bv[v]))
+    gb = gb.to(f32)
 
     # 1. shadows of the touched rows (padded slots write nothing)
     ur, vr = u[real], v[real]
-    state.theta_old[ur] = t[real]
-    state.phi_old[vr] = p[real]
-    state.bu_old[ur] = bu_g[real]
-    state.bv_old[vr] = bv_g[real]
+    state.theta_old[ur] = t[real].to(state.theta_old.dtype)
+    state.phi_old[vr] = p[real].to(state.phi_old.dtype)
+    state.bu_old[ur] = bu_g[real].to(state.bu_old.dtype)
+    state.bv_old[vr] = bv_g[real].to(state.bv_old.dtype)
 
     # 2. SGD step with the learned regularizers
     err = (eta * w) * (r - activate((t * p).sum(-1) + bu_g + bv_g + gb,
@@ -75,27 +84,29 @@ def adreg_batch_update(state: AdaptRegState, batch: Batch, valid: Valid,
     fu, ku = occurrence_stats(u, real, theta.shape[0])
     fv, kv = occurrence_stats(v, real, phi.shape[0])
 
-    def fac(lam, first, k):
-        return decay_factors((1.0 - eta * lam).expand_as(err), first, k)
+    def fac(lam, first, k, dtype):
+        return decay_factors((1.0 - eta * lam).expand_as(err), first,
+                             k).to(dtype)
 
     uf, vf = u[fu], v[fv]
-    theta[uf] *= fac(state.lam_u, fu, ku)[fu, None]
-    phi[vf] *= fac(state.lam_v, fv, kv)[fv, None]
-    bu[uf] *= fac(state.lam_bu, fu, ku)[fu]
-    bv[vf] *= fac(state.lam_bv, fv, kv)[fv]
-    theta.index_add_(0, u, err[:, None] * p)   # padded slots carry err = 0
-    phi.index_add_(0, v, err[:, None] * t)
-    bu.index_add_(0, u, err)
-    bv.index_add_(0, v, err)
+    theta[uf] *= fac(state.lam_u, fu, ku, theta.dtype)[fu, None]
+    phi[vf] *= fac(state.lam_v, fv, kv, phi.dtype)[fv, None]
+    bu[uf] *= fac(state.lam_bu, fu, ku, bu.dtype)[fu]
+    bv[vf] *= fac(state.lam_bv, fv, kv, bv.dtype)[fv]
+    # padded slots carry err = 0
+    scatter_add(theta, u, err[:, None] * p)
+    scatter_add(phi, v, err[:, None] * t)
+    scatter_add(bu, u, err)
+    scatter_add(bv, v, err)
 
     # 3. hypergradient step on the lambdas
     uv, vv, rv = valid
     su, sv, sr = uv[samples], vv[samples], rv[samples]
-    t_new, p_new = theta[su], phi[sv]
-    grad = sr - activate((t_new * p_new).sum(-1) + bu[su] + bv[sv] + gb,
-                         hyper.loss)
-    inner_u = (state.theta_old[su] * p_new).sum(-1)
-    inner_v = (t_new * state.phi_old[sv]).sum(-1)
+    t_new, p_new = theta[su].to(f32), phi[sv].to(f32)
+    grad = sr - activate((t_new * p_new).sum(-1) + bu[su].to(f32)
+                         + bv[sv].to(f32) + gb, hyper.loss)
+    inner_u = (state.theta_old[su].to(f32) * p_new).sum(-1)
+    inner_v = (t_new * state.phi_old[sv].to(f32)).sum(-1)
     # one micro-step per distinct real user of the batch, as the reference
     seen = torch.zeros(theta.shape[0], dtype=torch.float32, device=dev)
     seen.scatter_reduce_(0, u, real.to(torch.float32), reduce="amax")
@@ -106,8 +117,8 @@ def adreg_batch_update(state: AdaptRegState, batch: Batch, valid: Valid,
 
     return state._replace(
         lam_u=step(state.lam_u, inner_u), lam_v=step(state.lam_v, inner_v),
-        lam_bu=step(state.lam_bu, state.bu_old[su]),
-        lam_bv=step(state.lam_bv, state.bv_old[sv]))
+        lam_bu=step(state.lam_bu, state.bu_old[su].to(f32)),
+        lam_bv=step(state.lam_bv, state.bv_old[sv].to(f32)))
 
 
 def adreg_epoch(state: AdaptRegState, batches: Batch, valid: Valid,

@@ -50,6 +50,19 @@ def decay_factors(
                        torch.ones_like(base))
 
 
+def scatter_add(table: torch.Tensor, idx: torch.Tensor,
+                delta: torch.Tensor) -> None:
+    """table[idx] += delta in place, duplicate ids included. A float32
+    table sums with ``index_add_``; a narrower storage dtype (bf16) takes
+    the deltas rounded to it and one rounding per add, in slot order, as
+    ``tpu_mf``'s scatter does (``index_add_`` sums 2-D bf16 rows in float32
+    and rounds once)."""
+    if table.dtype == torch.float32:
+        table.index_add_(0, idx, delta)
+    else:
+        table.index_put_((idx,), delta.to(table.dtype), accumulate=True)
+
+
 def distinct_counts(ids, real) -> np.ndarray:
     """Distinct real ids per leading row, vectorized (host-side plan build;
     ``tpu_mf``'s, as it is).

@@ -41,14 +41,15 @@ def fuse_rows(fac: torch.Tensor, bias: torch.Tensor, rows: int, lanes: int,
               side: str, idmap: np.ndarray | None = None) -> torch.Tensor:
     """(rows, lanes) float32 fused table; side "u" is [fac | bias | 1],
     side "v" is [fac | 1 | bias]. With ``idmap``, row i goes to table row
-    ``idmap[i]``."""
+    ``idmap[i]``. Tables of another dtype (bf16 storage) are widened to
+    float32, as ``tpu_mf`` fuses them."""
     n, dim = fac.shape
     out = torch.zeros(rows, lanes, dtype=torch.float32, device=fac.device)
     at = (slice(0, n) if idmap is None
           else torch.as_tensor(idmap, dtype=torch.int64).to(fac.device))
     b_lane, one_lane = (dim, dim + 1) if side == "u" else (dim + 1, dim)
-    out[at, :dim] = fac
-    out[at, b_lane] = bias
+    out[at, :dim] = fac.to(torch.float32)
+    out[at, b_lane] = bias.to(torch.float32)
     out[at, one_lane] = 1.0
     return out
 

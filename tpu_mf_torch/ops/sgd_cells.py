@@ -604,12 +604,17 @@ class WindowRunner:
         type(self).launches += cell_epoch.launches - launched
         return tables
 
+    def bind(self, dim: int, gb: float) -> None:
+        """Fix the tables' rank and global bias for the epochs to come;
+        past 2 lane groups t*p is summed unrounded (``mxu_pred`` off)."""
+        self.dim = dim
+        if row_lanes(dim) > 2 * LANES:
+            self.mxu_pred = False
+        self.gb = float(gb)
+
     def pad(self, params: MFParams):
         self.materialize()
-        self.dim = params.theta.shape[1]
-        if row_lanes(self.dim) > 2 * LANES:
-            self.mxu_pred = False
-        self.gb = float(params.gb)
+        self.bind(params.theta.shape[1], params.gb)
         p = self.plan
         return pad_params(params, p.n_gu * p.tile_u, p.n_gv * p.tile_v,
                           self._map_u, self._map_v)

@@ -18,7 +18,10 @@ Per batch of B ratings, against batch-start values:
    row touched k times.
 
 This is the CPU path and the ``--no-pallas`` path. Noise comes from an
-explicit ``torch.Generator``; tables and counters are updated in place.
+explicit ``torch.Generator``; tables and counters are updated in place. On
+bfloat16 tables noise and deltas are drawn and computed in float32 and
+rounded to the storage dtype before they add, decay factors before they
+scale, and rows are gathered in float32, as ``tpu_mf`` does.
 """
 
 from __future__ import annotations
@@ -28,7 +31,11 @@ from typing import NamedTuple, Tuple
 import torch
 
 from tpu_mf_torch.models.dpmf import DPMFState
-from tpu_mf_torch.ops.common import decay_factors, occurrence_stats
+from tpu_mf_torch.ops.common import (
+    decay_factors,
+    occurrence_stats,
+    scatter_add,
+)
 
 Batch = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -73,17 +80,18 @@ def sgld_batch_update(state: DPMFState, batch: Batch, hyper: SgldHyper,
     def normal(*shape):
         return torch.randn(*shape, generator=generator, device=dev)
 
-    theta[uf] += su[:, None] * normal(len(uf), dim)
-    phi[vf] += sv[:, None] * normal(len(vf), dim)
-    bu[uf] += su * normal(len(uf))
-    bv[vf] += sv * normal(len(vf))
+    theta[uf] += (su[:, None] * normal(len(uf), dim)).to(theta.dtype)
+    phi[vf] += (sv[:, None] * normal(len(vf), dim)).to(phi.dtype)
+    bu[uf] += (su * normal(len(uf))).to(bu.dtype)
+    bv[vf] += (sv * normal(len(vf))).to(bv.dtype)
     state.gcountu[u_pad] = gc_end
     state.gcountv[v_pad] = gc_end
 
     # privacy-scaled gradient step (dpmf.h:72-88)
-    t, p = theta[u], phi[v]
+    f32 = torch.float32
+    t, p = theta[u].to(f32), phi[v].to(f32)
     scal = eta * ntrain * bound * state.lambda_r
-    pred = (t * p).sum(-1) + bu[u] + bv[v] + gb
+    pred = (t * p).sum(-1) + bu[u].to(f32) + bv[v].to(f32) + gb.to(f32)
     err = (scal * w) * (r - pred)
     ur_g, vr_g = state.ur[u], state.vr[v]
     fac_t = decay_factors(1.0 - (eta * bound * ur_g)[:, None]
@@ -92,14 +100,15 @@ def sgld_batch_update(state: DPMFState, batch: Batch, hyper: SgldHyper,
                           * state.lambda_v[None, :], fv, kv)
     fac_bu = decay_factors(1.0 - eta * state.lambda_ub * bound * ur_g, fu, ku)
     fac_bv = decay_factors(1.0 - eta * state.lambda_vb * bound * vr_g, fv, kv)
-    theta[uf] *= fac_t[fu]
-    phi[vf] *= fac_p[fv]
-    bu[uf] *= fac_bu[fu]
-    bv[vf] *= fac_bv[fv]
-    theta.index_add_(0, u, err[:, None] * p)   # padded slots carry err = 0
-    phi.index_add_(0, v, err[:, None] * t)
-    bu.index_add_(0, u, err)
-    bv.index_add_(0, v, err)
+    theta[uf] *= fac_t[fu].to(theta.dtype)
+    phi[vf] *= fac_p[fv].to(phi.dtype)
+    bu[uf] *= fac_bu[fu].to(bu.dtype)
+    bv[vf] *= fac_bv[fv].to(bv.dtype)
+    # padded slots carry err = 0
+    scatter_add(theta, u, err[:, None] * p)
+    scatter_add(phi, v, err[:, None] * t)
+    scatter_add(bu, u, err)
+    scatter_add(bv, v, err)
     return state._replace(gcount=gc_end)
 
 
@@ -133,10 +142,10 @@ def finish_noise(state: DPMFState, eta: float, temp: float,
     def normal(*shape):
         return torch.randn(*shape, generator=generator, device=dev)
 
-    theta += su[:, None] * normal(nu, dim)
-    phi += sv[:, None] * normal(nv, dim)
-    bu += su * normal(nu)
-    bv += sv * normal(nv)
+    theta += (su[:, None] * normal(nu, dim)).to(theta.dtype)
+    phi += (sv[:, None] * normal(nv, dim)).to(phi.dtype)
+    bu += (su * normal(nu)).to(bu.dtype)
+    bv += (sv * normal(nv)).to(bv.dtype)
     state.gcountu.zero_()
     state.gcountv.zero_()
     state.gcount.zero_()

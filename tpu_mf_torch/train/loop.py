@@ -13,6 +13,12 @@ fused kernels run (``_train_mf_fused``; ``_dpmf_runner``;
 ``_admf_runner``); otherwise every epoch is the batched ``sgd_epoch`` /
 ``sgld_epoch`` / ``adreg_epoch``. Ratings are shuffled on the host
 (``epoch_batches``), as ``tpu_mf`` does with ``device_shuffle=False``.
+
+With ``cfg.resume`` and ``cfg.result`` every ``cfg.resume_every`` rounds
+write their state to ``<result>.state.r%06d.npz`` (``io/resume.py``), and a
+run starts after the newest such round. Every per-round seed and plan pick
+depends on the round alone, so a resumed run repeats the rounds an
+uninterrupted one would have run.
 """
 
 from __future__ import annotations
@@ -27,7 +33,12 @@ import torch
 
 from tpu_mf_torch.config import TrainConfig
 from tpu_mf_torch.data.coo import RatingsCOO, epoch_batches
-from tpu_mf_torch.models.admf import LAMBDAS, AdaptRegState, init_admf
+from tpu_mf_torch.models.admf import (
+    LAMBDAS,
+    AdaptRegState,
+    init_admf,
+    with_shadows,
+)
 from tpu_mf_torch.models.dpmf import DPMFState, dp_bound, init_dpmf
 from tpu_mf_torch.models.mf import MFParams, calc_mse, init_mf, rmse
 from tpu_mf_torch.ops.adreg import (
@@ -43,21 +54,41 @@ from tpu_mf_torch.train.metrics import MetricsLogger, profile_trace
 
 
 class _Observer:
-    """--metrics JSONL lines, --trace capture and a once-per-run warning
-    when the test RMSE stops being finite."""
+    """--metrics JSONL lines, --trace capture, a once-per-run warning
+    when the test RMSE stops being finite, and --resume: atomic per-round
+    state under ``<result>.state.*`` and the round to restart after."""
 
     def __init__(self, cfg: TrainConfig, n_train: int,
                  log: Callable[[str], None] = print):
         self.cfg = cfg
         self.n_train = n_train
         self.ml = MetricsLogger(cfg.metrics) if cfg.metrics else None
+        self.prefix = (f"{cfg.result}.state" if (cfg.resume and cfg.result)
+                       else None)
         self._log = log
         self._diverged = False
 
     def trace(self):
         return profile_trace(self.cfg.trace)
 
-    def epoch_done(self, rnd: int, **fields):
+    def resume(self, device: torch.device | str = "cuda"):
+        """(start round, params on ``device``, extras) of the newest state
+        file, or (0, None, None)."""
+        if self.prefix is None:
+            return 0, None, None
+        from tpu_mf_torch.io.resume import load_round, resume_round
+
+        rnd = resume_round(self.prefix)
+        if rnd == 0:
+            return 0, None, None
+        params, extras = load_round(self.prefix, device)
+        return rnd, params, extras
+
+    def epoch_done(self, rnd: int, params_fn=None, extras_fn=None,
+                   **fields):
+        """Record a finished round: the divergence warning, the metrics
+        line, and on the resume cadence the round's state. ``params_fn``
+        and ``extras_fn`` are called only when a state file is written."""
         if not self._diverged:
             v = fields.get("tRMSE")
             if v is not None and not np.isfinite(v):
@@ -73,6 +104,12 @@ class _Observer:
         if self.ml is not None:
             self.ml.count_updates(self.n_train)
             self.ml.log(round=rnd, **fields)
+        if (self.prefix is not None and params_fn is not None
+                and rnd % max(1, self.cfg.resume_every) == 0):
+            from tpu_mf_torch.io.resume import save_round
+
+            extras = extras_fn() if extras_fn is not None else {}
+            save_round(self.prefix, rnd, params_fn(), **extras)
 
     def close(self):
         if self.ml is not None:
@@ -107,12 +144,12 @@ class BatchedRunner:
 def _unsupported(cfg: TrainConfig) -> Optional[str]:
     if cfg.mesh > 1:
         return "--mesh > 1 (multi-device training, ROADMAP Queue 1 item 10)"
-    if cfg.resume:
-        return "--resume (io/resume.py, ROADMAP Queue 1 item 13)"
-    if cfg.dtype != "float32":
-        return (f"--dtype {cfg.dtype} tables (float32 only so far, "
-                "ROADMAP Queue 1 item 13)")
     return None
+
+
+def _storage_dtype(cfg: TrainConfig) -> torch.dtype:
+    """The tables' storage dtype (``--dtype``)."""
+    return {"float32": torch.float32, "bfloat16": torch.bfloat16}[cfg.dtype]
 
 
 def train_mf(
@@ -125,8 +162,12 @@ def train_mf(
 ) -> MFParams:
     """Biased-MF SGD training (reference: run(MF&), src/main.cc:36-52).
 
-    ``params`` (if given) is copied, not modified; new tables are drawn
-    from a ``torch.Generator`` seeded with ``cfg.seed``."""
+    ``params`` (if given) is copied in its dtype, not modified; new tables
+    are drawn from a ``torch.Generator`` seeded with ``cfg.seed`` and
+    stored in ``cfg.dtype``. With ``cfg.resume`` the newest state of
+    ``<cfg.result>.state`` replaces them and the epochs after its round
+    run. The fused kernels work on float32 rows and return float32
+    tables, as ``tpu_mf``'s do; the batched path keeps the storage dtype."""
     why = _unsupported(cfg)
     if why is not None:
         raise NotImplementedError(f"tpu_mf_torch does not port {why} yet")
@@ -134,21 +175,26 @@ def train_mf(
     if params is None:
         gen = torch.Generator().manual_seed(cfg.seed)
         params = init_mf(train_ds.nu, train_ds.nv, cfg.dim, cfg.gb, gen,
-                         device)
+                         device, dtype=_storage_dtype(cfg))
     else:
-        params = MFParams(*(t.to(device, torch.float32).clone()
-                            for t in params))
+        params = MFParams(*(t.to(device).clone() for t in params))
     obs = _Observer(cfg, len(train_ds), log)
+    start, rparams, _ = obs.resume(device)
+    if rparams is not None:
+        params = rparams
+        log(f"# resumed from round {start} ({obs.prefix})")
     try:
         with obs.trace():
             if cfg.use_pallas and device.type == "cuda":
                 if cfg.dim <= MAX_DIM:
                     return _train_mf_fused(cfg, train_ds, test_ds, params,
-                                           log, obs)
+                                           log, obs, start)
                 log(f"# dim {cfg.dim} > {MAX_DIM}: no fused kernel; using "
                     "the batched path")
-            sched = [(1, BatchedRunner(train_ds, cfg.batch_size, cfg.seed))]
-            return _run_schedule(cfg, sched, test_ds, params, log, obs)
+            sched = [(start + 1, BatchedRunner(train_ds, cfg.batch_size,
+                                               cfg.seed))]
+            return _run_schedule(cfg, sched, test_ds, params, log, obs,
+                                 start)
     finally:
         obs.close()
 
@@ -207,8 +253,8 @@ def _mf_runner_schedule(cfg, train_ds, params, log, start=0):
     serves epochs [first_epoch, next phase's first_epoch).
 
     The decision tree of ``tpu_mf``'s schedule, in its order:
-    1. an item table past ``pallas_eligible``: ``tpu_mf`` shards it
-       (``ops/phi_shard.py``, not ported: the batched path runs);
+    1. an item table past ``pallas_eligible``: item-sharded gen-1 epochs
+       (``ops/phi_shard.py``), one phase;
     2. the dense-cell runner, from its engagement epoch;
     3. at dim <= 61, the slot-major ladder (``_slot_phase_ladder``) from
        the first epoch whose eta clears its staleness envelope, unless the
@@ -237,11 +283,15 @@ def _mf_runner_schedule(cfg, train_ds, params, log, start=0):
     work = "bfloat16" if device.type == "cuda" else "float32"
     n_plans = 2 if cfg.iters > 1 else 1  # between-epoch reshuffling
     if not pallas_eligible(params, cfg.batch_size):
-        log(f"# item-sharded kernel (ops/phi_shard.py) not yet ported "
-            f"(ROADMAP Queue 1 item 6): epochs {start + 1}..{cfg.iters} use "
-            "the batched path")
-        return [(start + 1, BatchedRunner(train_ds, cfg.batch_size,
-                                          cfg.seed))]
+        from tpu_mf_torch.ops.phi_shard import PhiShardedRunner
+
+        runner = PhiShardedRunner(train_ds, dim=cfg.dim, seed=cfg.seed,
+                                  n_plans=n_plans, saturate=True, mxu=work,
+                                  device=device)
+        log(f"# item table exceeds VMEM (nv={train_ds.nv}): item-sharded "
+            f"fused epochs, {runner.n_shards} shards, tiles "
+            f"{runner.tile_u}x{runner.tile_v}, batch {runner.batch}")
+        return [(start + 1, runner)]
 
     dense_from = None
     if cfg.use_dense and dense_eligible(params, train_ds):
@@ -329,6 +379,10 @@ def _train_mf_fused(cfg, train_ds, test_ds, params, log, obs,
 
 def _run_schedule(cfg, sched, test_ds, params, log, obs,
                   start=0) -> MFParams:
+    """Epochs start+1..cfg.iters on the schedule's runners. Tables stay in
+    each runner's form (fused tables, or the sharded runner's
+    (theta, [phi_k])); ``trim`` gives params for each epoch's eval, each
+    handover and each state file."""
     dev = params.theta.device
     if test_ds is not None:  # the test set crosses to the device once
         test_ds = SimpleNamespace(**{
@@ -356,8 +410,9 @@ def _run_schedule(cfg, sched, test_ds, params, log, obs,
             log(f"iter#{it}\t{elapsed:f}\ttRMSE={t_rmse:f}")
         else:
             log(f"iter#{it}\t{elapsed:f}")
-        obs.epoch_done(it, alg="mf", kernel=type(runner).__name__,
-                       eta=cfg.eta_at(it), elapsed=elapsed, tRMSE=t_rmse)
+        obs.epoch_done(it, params_fn=lambda: runner.trim(tables), alg="mf",
+                       kernel=type(runner).__name__, eta=cfg.eta_at(it),
+                       elapsed=elapsed, tRMSE=t_rmse)
     return MFParams(*(t.contiguous() for t in runner.trim(tables)))
 
 
@@ -427,6 +482,43 @@ def _dpmf_setup(cfg: TrainConfig, train_ds: RatingsCOO,
         device=device, t0=time.perf_counter())
 
 
+def _dpmf_extras(state: DPMFState) -> dict:
+    """The state file's DP-SGLD extras, ``tpu_mf``'s keys and dtypes (its
+    counters are int32; the port's state holds int64)."""
+    def host(x, dtype):
+        return np.asarray(x.detach().cpu().numpy(), dtype)
+
+    return dict(
+        lambda_r=np.float32(float(state.lambda_r)),
+        lambda_ub=np.float32(float(state.lambda_ub)),
+        lambda_vb=np.float32(float(state.lambda_vb)),
+        lambda_u=host(state.lambda_u, np.float32),
+        lambda_v=host(state.lambda_v, np.float32),
+        gcountu=host(state.gcountu, np.int32),
+        gcountv=host(state.gcountv, np.int32),
+        gcount=np.int32(int(state.gcount)))
+
+
+def _dpmf_restore(state: DPMFState, params: MFParams, extras: dict
+                  ) -> DPMFState:
+    """``state`` with a state file's tables, precisions and counters; the
+    inverse frequencies stay ``state``'s (``init_dpmf``'s, from the
+    training set)."""
+    dev = state.gcount.device
+
+    def f32(k):
+        return torch.as_tensor(np.asarray(extras[k], np.float32)).to(dev)
+
+    def i64(k):
+        return torch.as_tensor(np.asarray(extras[k], np.int64)).to(dev)
+
+    return state._replace(
+        params=params, lambda_r=f32("lambda_r"), lambda_ub=f32("lambda_ub"),
+        lambda_vb=f32("lambda_vb"), lambda_u=f32("lambda_u"),
+        lambda_v=f32("lambda_v"), gcountu=i64("gcountu"),
+        gcountv=i64("gcountv"), gcount=i64("gcount"))
+
+
 def _round_seed(cfg: TrainConfig, offset: int) -> int:
     return (cfg.seed ^ 0xD1FF) * 1_000_003 + offset
 
@@ -484,7 +576,8 @@ def _dpmf_round(run: _DpmfRun, rnd: int, state: DPMFState) -> DPMFState:
     else:
         run.log(f"round #{rnd}\tRMSE={np.sqrt(train_mse):f}\t{elapsed:f}")
     run.obs.epoch_done(
-        rnd, alg="dpmf",
+        rnd, params_fn=lambda: state.params,
+        extras_fn=lambda: _dpmf_extras(state), alg="dpmf",
         kernel=type(run.runner).__name__ if run.runner else "batched",
         eta=eta_r,
         elapsed=elapsed, RMSE=float(np.sqrt(train_mse)), tRMSE=t_rmse,
@@ -507,7 +600,10 @@ def train_dpmf(
     round ``_dpmf_round``, the learning rate eta_at_cutoff(round).
 
     ``state`` (if given) is copied, not modified; a new state's tables are
-    drawn from a ``torch.Generator`` seeded with ``cfg.seed``. Stability:
+    drawn from a ``torch.Generator`` seeded with ``cfg.seed`` and stored in
+    ``cfg.dtype``. With ``cfg.resume`` the newest state file's tables,
+    precisions and noise counters replace the state's and the rounds after
+    its round run. Stability:
     the per-rating step is scal = eta * ntrain * bound * lambda_r, and the
     gen-1 SGLD kernel does not saturate, so a row repeated k times in one
     window (a plan column) takes k steps from the same point. Keep scal
@@ -521,16 +617,22 @@ def train_dpmf(
     device = torch.device(device)
     if state is None:
         state = init_dpmf(train_ds, cfg.dim, cfg.gb,
-                          torch.Generator().manual_seed(cfg.seed), device)
+                          torch.Generator().manual_seed(cfg.seed), device,
+                          dtype=_storage_dtype(cfg))
     else:
         state = DPMFState(MFParams(*(t.to(device).clone()
                                      for t in state.params)),
                           *(t.to(device).clone() for t in state[1:]))
-    runner = _dpmf_runner(cfg, train_ds, state, log, device)
-    run = _dpmf_setup(cfg, train_ds, test_ds, log, save_fn, device, runner)
+    run = _dpmf_setup(cfg, train_ds, test_ds, log, save_fn, device, None)
+    start, rparams, rex = run.obs.resume(device)
+    if rparams is not None:
+        state = _dpmf_restore(state, rparams, rex)
+        log(f"# resumed from round {start} ({run.obs.prefix})")
+    run.runner = _dpmf_runner(cfg, train_ds, state, log, device)
+    run.t0 = time.perf_counter()
     try:
         with run.obs.trace():
-            for rnd in range(1, cfg.iters + 1):
+            for rnd in range(start + 1, cfg.iters + 1):
                 state = _dpmf_round(run, rnd, state)
     finally:
         run.obs.close()
@@ -598,7 +700,9 @@ def _admf_runner(cfg: TrainConfig, train_ds: RatingsCOO,
 def _admf_report(cfg: TrainConfig, it: int, t0: float, params: MFParams,
                  test: Optional[SimpleNamespace], lams, kernel: str,
                  log: Callable[[str], None], obs: _Observer) -> None:
-    """Epoch ``it``'s iter# line and its --metrics fields."""
+    """Epoch ``it``'s iter# line, its --metrics fields and, on the resume
+    cadence, its state (``params`` and the four lambdas, ``tpu_mf``'s
+    keys)."""
     elapsed = time.perf_counter() - t0
     t_rmse = None
     if test is not None:
@@ -606,21 +710,25 @@ def _admf_report(cfg: TrainConfig, it: int, t0: float, params: MFParams,
         log(f"iter#{it}\t{elapsed:f}\ttRMSE={t_rmse:f}")
     else:
         log(f"iter#{it}\t{elapsed:f}")
-    obs.epoch_done(it, alg="admf", kernel=kernel, eta=cfg.eta_at(it),
+    obs.epoch_done(it, params_fn=lambda: params,
+                   extras_fn=lambda: {k: np.float32(float(x))
+                                      for k, x in zip(LAMBDAS, lams)},
+                   alg="admf", kernel=kernel, eta=cfg.eta_at(it),
                    elapsed=elapsed, tRMSE=t_rmse,
                    **{k: float(x) for k, x in zip(LAMBDAS, lams)})
 
 
 def _train_admf_fused(cfg: TrainConfig, runner, state: AdaptRegState,
-                      test_ds: Optional[RatingsCOO], log, obs
+                      test_ds: Optional[RatingsCOO], log, obs, start: int = 0
                       ) -> AdaptRegState:
-    """AdaptReg epochs on a fused runner: ``runner.epoch`` per epoch with
-    the epoch's key, plans rotated by epoch."""
+    """AdaptReg epochs start+1..cfg.iters on a fused runner:
+    ``runner.epoch`` per epoch with the epoch's key, plans rotated by
+    epoch."""
     dev = state.params.theta.device
     test = _on_device(test_ds, dev) if test_ds is not None else None
     tables = runner.pad(state)
     t0 = time.perf_counter()
-    for it in range(1, cfg.iters + 1):
+    for it in range(start + 1, cfg.iters + 1):
         tables = runner.epoch(tables, cfg.eta_at(it), cfg.eta_reg_at(it),
                               _admf_key(cfg, it), epoch_idx=it - 1)
         if dev.type == "cuda":
@@ -632,16 +740,18 @@ def _train_admf_fused(cfg: TrainConfig, runner, state: AdaptRegState,
 
 def _train_admf_batched(cfg: TrainConfig, train_ds: RatingsCOO,
                         valid_ds: RatingsCOO, test_ds: Optional[RatingsCOO],
-                        state: AdaptRegState, log, obs) -> AdaptRegState:
-    """AdaptReg epochs on the batched path: host-shuffled batches, K
-    validation indices per batch from a generator keyed by the epoch."""
+                        state: AdaptRegState, log, obs, start: int = 0
+                        ) -> AdaptRegState:
+    """AdaptReg epochs start+1..cfg.iters on the batched path:
+    host-shuffled batches, K validation indices per batch from a generator
+    keyed by the epoch."""
     dev = state.params.theta.device
     valid = (torch.as_tensor(valid_ds.u.astype(np.int64)).to(dev),
              torch.as_tensor(valid_ds.v.astype(np.int64)).to(dev),
              torch.as_tensor(valid_ds.r).to(dev, torch.float32))
     test = _on_device(test_ds, dev) if test_ds is not None else None
     t0 = time.perf_counter()
-    for it in range(1, cfg.iters + 1):
+    for it in range(start + 1, cfg.iters + 1):
         u, v, r, w = epoch_batches(train_ds, cfg.batch_size, it,
                                    cfg.seed ^ 0x7E57)
         batches = (torch.as_tensor(u.astype(np.int64)).to(dev),
@@ -677,30 +787,38 @@ def train_admf(
     model.cc:390-415); the learning rates are eta_at(epoch) and
     eta_reg_at(epoch).
 
-    ``state`` (if given) is copied, not modified; a new state's tables are
-    drawn from a ``torch.Generator`` seeded with ``cfg.seed``, all four
-    lambdas at ``cfg.lam``. The fused runners return shadows that copy the
-    final tables; the batched path returns its shadows as they stand."""
+    ``state`` (if given) is copied in its dtypes, not modified; a new
+    state's tables are drawn from a ``torch.Generator`` seeded with
+    ``cfg.seed`` and stored in ``cfg.dtype``, all four lambdas at
+    ``cfg.lam``. With ``cfg.resume`` the newest state file's tables and
+    lambdas replace the state's, its shadows restart as copies of the
+    tables, and the epochs after its round run. The fused runners return
+    shadows that copy the final tables; the batched path returns its
+    shadows as they stand."""
     why = _unsupported(cfg)
     if why is not None:
         raise NotImplementedError(f"tpu_mf_torch does not port {why} yet")
     device = torch.device(device)
     if state is None:
         state = init_admf(train_ds.nu, train_ds.nv, cfg.dim, cfg.lam, cfg.gb,
-                          torch.Generator().manual_seed(cfg.seed), device)
+                          torch.Generator().manual_seed(cfg.seed), device,
+                          dtype=_storage_dtype(cfg))
     else:
         state = AdaptRegState(
-            MFParams(*(t.to(device, torch.float32).clone()
-                       for t in state.params)),
-            *(t.to(device, torch.float32).clone() for t in state[1:]))
+            MFParams(*(t.to(device).clone() for t in state.params)),
+            *(t.to(device).clone() for t in state[1:]))
     obs = _Observer(cfg, len(train_ds), log)
+    start, rparams, rex = obs.resume(device)
+    if rparams is not None:
+        state = with_shadows(rparams, [rex[k] for k in LAMBDAS])
+        log(f"# resumed from round {start} ({obs.prefix})")
     try:
         with obs.trace():
             runner = _admf_runner(cfg, train_ds, valid_ds, state, log, device)
             if runner is not None:
                 return _train_admf_fused(cfg, runner, state, test_ds, log,
-                                         obs)
+                                         obs, start)
             return _train_admf_batched(cfg, train_ds, valid_ds, test_ds,
-                                       state, log, obs)
+                                       state, log, obs, start)
     finally:
         obs.close()
