@@ -7,7 +7,7 @@
 
 Phases (each prints its own lines; any failure exits non-zero). A listed
 phase brings the rest of its group, the phases that read each other's
-results: 3, 5, 24 and 25; 7-10; 12 and 14; 16 and 18:
+results: 3, 5, 24, 25 and 29; 7-10; 12 and 14; 16 and 18:
   1. build the CUDA kernels from the sources in the checkout, one nvcc per
      source, all at once;
   2. each kernel against its plain PyTorch version on the card: one dense
@@ -50,10 +50,12 @@ results: 3, 5, 24 and 25; 7-10; 12 and 14; 16 and 18:
      columns;
   9. phase 7's run replayed with the plain version: the schedule that run
      built (its runners and plans, kept from ``_mf_runner_schedule``) from
-     the same initial tables, every epoch
-     through ``cell_epoch_reference`` with handovers through trim/pad; the
-     final tables must agree with train_mf's, each table's difference must
-     be small beside how far training moved it, and the tRMSE must agree;
+     the same initial tables, the packed phase's epochs on the kernel
+     (phase 10 holds its first against the plain version) and every slot
+     epoch through ``cell_epoch_reference``, with handovers through
+     trim/pad; the final tables must agree with train_mf's, each table's
+     difference must be small beside how far training moved it, and the
+     tRMSE must agree;
  10. one full epoch of each phase of that schedule (packed at epoch 1,
      each slot phase at its first epoch) from the same initial tables,
      timed with CUDA events: the packed and the first slot phase plain
@@ -144,20 +146,36 @@ results: 3, 5, 24 and 25; 7-10; 12 and 14; 16 and 18:
      through the plain version and the kernel (twice), timed and held as
      in phase 9;
  24. ``--resume`` through the CLI (``tpu_mf_torch.cli.main``) at phase 3's
-     configuration: the stand-in written as raw text, 2 epochs with
-     ``--result --resume``, then ``--iter 3``, which must resume round 2
-     and run epoch 3 alone; its tables and tRMSE held to phase 3's
-     uninterrupted run;
+     configuration: the stand-in written as raw text (once a run, shared
+     with phases 26-28), 2 epochs with ``--result --resume``, then
+     ``--iter 3 --measure 1``, which must resume round 2, run epoch 3
+     alone and print the ranking line; its tables and tRMSE held to phase
+     3's uninterrupted run;
  25. ``train_mf`` with bfloat16 tables (``dtype="bfloat16"``) at phase 3's
      configuration: dense every epoch, tRMSE finite and falling, printed
-     beside phase 3's float32 run.
+     beside phase 3's float32 run;
+ 26. the streamed path: ``--alg mf --stream`` through the CLI on the raw
+     text, dim 64, 3 epochs, batch 8192: ``FusedStreamTrainer``, one
+     ``cell_sgd`` launch a shard and epoch, tRMSE falling; the ShardStore,
+     per epoch the plan build or cache load, upload and kernel times, wall
+     time and tRMSE, peak device memory; epoch 1's launch held against
+     the plain version on the card (``stream`` in the JSON line);
+ 27. ``FusedStreamTrainer`` at 4 shards (``mem_limit`` 2,500,000), one
+     epoch: its wall time beside the sums of plan builds, uploads and
+     kernels (how much the Prefetcher overlaps);
+ 28. ``--alg dpmf --stream`` and ``--alg admf --stream`` through the CLI,
+     one round / epoch each at dim 128 (the per-batch path), beside one
+     parse-only pass over the file;
+ 29. ``--measure 1``'s ranking metrics on phase 3's model, timed, and
+     ``recommend_topk`` for 1,024 users against float64 on the CPU.
 
 Each phase group prints its seconds. The last lines are the kernels' JSON
 summary (time, launches on the main path, bound; for the SGLD, AdaptReg
 and free-column kernels the walk the main path took, whose time and error
 the line gives; for ``phi_shard``, ``cell_sgd.cu`` on the item-sharded
 path, the time, error and bound of one sub-epoch, shard 0 of epoch 1, and
-the shard count), the card's name and power limit, and
+the shard count; for ``stream``, ``cell_sgd.cu`` on the streamed path, the
+same of epoch 1's first launch), the card's name and power limit, and
 {"ok": true, "device": {...}}. Imports nothing of JAX or
 of tpu_mf. Plans are built anew (``TPU_MF_PLAN_CACHE=0``): nothing is
 written outside the checkout.
@@ -171,6 +189,7 @@ import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -247,6 +266,9 @@ FREE_GROUPS = ((8, 8), (1, 1), (8, 1), (4, 2))
 # the free tile walk's cluster sizes timed in phase 21
 # (tpu_mf_torch/ops/tile_walk.py: FREE_CLUSTERS), in turns
 FREE_PROBE = (1, 2, 4, 8, 8, 4, 2, 1)
+# phase 27: the ShardStore's ratings a shard, which cuts the stand-in's 9M
+# training ratings into 4 shards
+STREAM_MEM_LIMIT, STREAM_SHARDS = 2_500_000, 4
 # the card's published peaks (H100 SXM data sheet, at 700 W): memory bytes/s,
 # bf16 tensor-core and float32 CUDA-core operations/s
 HBM_BYTES_S, PEAK_BF16, PEAK_F32 = 3.35e12, 989e12, 67e12
@@ -821,8 +843,10 @@ def hold(what, got, want, init, atol, phase):
 def phase_replay_ladder(torch, tc, cfg, train, test, params, rm, geo_packed,
                         geo_slots, sched):
     """Phase 7's run replayed from the same initial tables on the schedule
-    it built (its runners and plans) through the plain version; returns
-    the initial tables."""
+    it built (its runners and plans): the first (packed) phase's epochs on
+    the kernel, whose first epoch phase 10 holds against the plain
+    version, and the slot phases' epochs and handovers through the plain
+    version; returns the initial tables."""
     from tpu_mf_torch.models.mf import init_mf, rmse
 
     init = init_mf(train.nu, train.nv, cfg.dim, cfg.gb,
@@ -835,6 +859,7 @@ def phase_replay_ladder(torch, tc, cfg, train, test, params, rm, geo_packed,
             1, "PackedEpochRunner", geo_packed, geo_slots):
         raise AssertionError("phase 7's schedule is not the one it logged")
     gb = float(init.gb)
+    packed = runner
     tables = runner.pad(init)
     ms = []
     for it in range(1, cfg.iters + 1):
@@ -842,6 +867,9 @@ def phase_replay_ladder(torch, tc, cfg, train, test, params, rm, geo_packed,
             nxt = upcoming.pop(0)[1]
             tables = nxt.pad(runner.trim(tables))
             runner = nxt
+        if runner is packed:
+            runner.epoch(tables, cfg.eta_at(it), cfg.lam, gb, epoch_idx=it)
+            continue
         a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
         a.record()
         plain_epoch(tc, runner, tables, cfg.eta_at(it), cfg.lam, gb, it)
@@ -849,7 +877,9 @@ def phase_replay_ladder(torch, tc, cfg, train, test, params, rm, geo_packed,
         torch.cuda.synchronize()
         ms.append(a.elapsed_time(b))
     final = runner.trim(tables)
-    log(f"# phase 9: plain replay epoch ms {[round(x, 3) for x in ms]}")
+    log(f"# phase 9: packed epochs 1..{sched[1][0] - 1} on the kernel; "
+        f"plain replay of epochs {sched[1][0]}..{cfg.iters}, ms "
+        f"{[round(x, 3) for x in ms]}")
     hold(f"train_mf's tables after {cfg.iters} epochs vs the plain replay",
          params, final, init, ATOL_LADDER_REPLAY, 9)
     rm_plain = rmse(final, test)
@@ -2409,6 +2439,25 @@ def write_raw(path, ds, workers=8):
             f.write(text)
 
 
+_RAW = {}  # the ML-10M stand-in as raw text: "dir" and its file paths
+
+
+def raw_standin(train, test, phase):
+    """(train path, test path) of the ML-10M stand-in as the reference's raw
+    text, written once a run (``write_raw``) into a temporary directory
+    that ``main`` removes."""
+    if not _RAW:
+        t = time.perf_counter()
+        d = tempfile.mkdtemp(prefix="chip_smoke_raw_")
+        _RAW["dir"] = d
+        for name, ds in (("train", train), ("test", test)):
+            _RAW[name] = os.path.join(d, f"{name}.txt")
+            write_raw(_RAW[name], ds)
+        log(f"# phase {phase}: stand-in written as raw text in "
+            f"{time.perf_counter() - t:.1f} s")
+    return _RAW["train"], _RAW["test"]
+
+
 def run_cli(argv):
     """``tpu_mf_torch.cli.main(argv)``, its standard output echoed and
     returned as lines."""
@@ -2437,13 +2486,8 @@ def phase_resume(torch, cfg, train, test, params, rm):
     1e-3)."""
     from tpu_mf_torch.io.checkpoint import load_mf_binary
 
+    paths = raw_standin(train, test, 24)
     with tempfile.TemporaryDirectory() as d:
-        t = time.perf_counter()
-        paths = [os.path.join(d, f"{x}.txt") for x in ("train", "test")]
-        write_raw(paths[0], train)
-        write_raw(paths[1], test)
-        log(f"# phase 24: stand-in written as raw text in "
-            f"{time.perf_counter() - t:.1f} s")
         prefix = os.path.join(d, "model")
         args = ["--train", paths[0], "--test", paths[1], "--nu",
                 str(train.nu), "--nv", str(train.nv), "--dim", str(DIM),
@@ -2453,15 +2497,19 @@ def phase_resume(torch, cfg, train, test, params, rm):
         run_cli(args)
         t2 = time.perf_counter()
         states = sorted(os.listdir(d))
-        lines = run_cli(args + ["--iter", "3"])
-        log(f"# phase 24: CLI runs of 2 epochs and resumed to 3 in "
-            f"{t2 - t:.1f} s and {time.perf_counter() - t2:.1f} s (reads and "
-            f"plans included); files after the first run {states}")
+        lines = run_cli(args + ["--iter", "3", "--measure", "1"])
+        log(f"# phase 24: CLI runs of 2 epochs and resumed to 3 with "
+            f"--measure 1 in {t2 - t:.1f} s and "
+            f"{time.perf_counter() - t2:.1f} s (reads, plans and the "
+            f"ranking included); files after the first run {states}")
         if f"# resumed from round 2 ({prefix}.state)" not in lines:
             raise AssertionError("the second run did not resume round 2")
         iters = [x for x in lines if x.startswith("iter#")]
         if [x.split("\t")[0] for x in iters] != ["iter#3"]:
             raise AssertionError(f"the resumed run ran {iters}")
+        ranking = [x for x in lines if x.startswith("recall@10=")]
+        if len(ranking) != 1:
+            raise AssertionError("--measure 1 printed no ranking line")
         got, _ = load_mf_binary(f"{prefix}_3", gb=cfg.gb, device=DEVICE)
     from tpu_mf_torch.models.mf import init_mf
 
@@ -2474,6 +2522,7 @@ def phase_resume(torch, cfg, train, test, params, rm):
         f"uninterrupted {rm[-1]:.6f}")
     if not abs(rm3 - rm[-1]) <= 1e-3:
         raise AssertionError("the resumed run's tRMSE disagrees")
+    return ranking[0]
 
 
 def phase_bf16(torch, train, test, rm):
@@ -2490,6 +2539,318 @@ def phase_bf16(torch, train, test, rm):
         f"(phase 3) {rm}")
     if not abs(brm[-1] - rm[-1]) <= 1e-2:
         raise AssertionError("bf16 tables end far from float32's")
+
+
+def stream_counts():
+    """Every launch count of the kernels and runners set to 0: what a main
+    path run reads afterwards."""
+    from tpu_mf_torch.io.stream_fused import FusedStreamTrainer
+    from tpu_mf_torch.ops import sgd_cells as tc
+
+    counts = counters()
+    for c in list(counts.values()) + [tc.cell_epoch, FusedStreamTrainer]:
+        c.launches = 0
+    return counts
+
+
+@contextlib.contextmanager
+def keep_trainers():
+    """For the ``with`` block, keep every ``FusedStreamTrainer`` that
+    ``train.loop`` builds in the yielded list, each with the seconds its
+    ShardStore took (``store_s``) and the device plan of its first launch
+    (``first``). Launches and counts are untouched."""
+    from tpu_mf_torch.io.stream_fused import FusedStreamTrainer as cls
+
+    init, launch, kept = cls.__init__, cls._launch, []
+
+    def keep_init(self, *args, **kwargs):
+        t = time.perf_counter()
+        init(self, *args, **kwargs)
+        self.store_s = time.perf_counter() - t
+        self.first = None
+        kept.append(self)
+
+    def keep_launch(self, tables, plan, *args):
+        if self.first is None:
+            self.first = plan
+        launch(self, tables, plan, *args)
+
+    cls.__init__, cls._launch = keep_init, keep_launch
+    try:
+        yield kept
+    finally:
+        cls.__init__, cls._launch = init, launch
+
+
+def shard_times(entries):
+    """(plan s, upload ms, kernel ms) summed over ``shard_log`` entries."""
+    return (sum(e["plan_s"] for e in entries),
+            sum(e["upload"][0].elapsed_time(e["upload"][1])
+                for e in entries),
+            sum(e["kernel"][0].elapsed_time(e["kernel"][1])
+                for e in entries))
+
+
+def phase_stream(torch, tc, train, test, gen1_rm):
+    """Phase 26: the slice's main path at full size: ``python -m
+    tpu_mf_torch.cli --alg mf --stream`` (``run_cli``) on the ML-10M
+    stand-in's raw text, dim 64, 3 epochs, batch 8192, ``--nu/--nv``
+    given: ``FusedStreamTrainer`` (tiles 512x512, one shard at the 20M
+    default ``mem_limit``), one ``cell_sgd`` launch per shard and epoch at
+    8/8 groups without saturation, tRMSE falling. Logged: the ShardStore
+    build, per epoch the plan build or cache load, the upload and kernel
+    times (CUDA events), the wall time and tRMSE, the run's peak device
+    memory, and phase 4's in-memory gen-1 tRMSE beside it. Then epoch 1's
+    launch (the first shard's plan of that run) from ``init_mf``'s tables
+    through the plain version and the kernel (twice), timed and held as in
+    phase 23. Returns the launches, the launch's (ms, plain ms, bound from
+    the rows its plan touches), its error and the shard count."""
+    from tpu_mf_torch.io.stream_fused import FusedStreamTrainer
+    from tpu_mf_torch.models.mf import init_mf
+
+    paths = raw_standin(train, test, 26)
+    gb = train.mean_rating()
+    args = ["--alg", "mf", "--stream", "--train", paths[0], "--test",
+            paths[1], "--nu", str(train.nu), "--nv", str(train.nv), "--dim",
+            str(DIM), "--iter", str(EPOCHS), "--batch_size", "8192",
+            "--bias", repr(gb), "--device", DEVICE]
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    counts = stream_counts()
+    t = time.perf_counter()
+    with keep_trainers() as kept:
+        lines = run_cli(args)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    peak = torch.cuda.max_memory_allocated()
+    launches = tc.cell_epoch.launches
+    (r,) = kept
+    k = r.store.n_shards
+    if not (launches == FusedStreamTrainer.launches == EPOCHS * k
+            and len(r.shard_log) == EPOCHS * k):
+        raise AssertionError(f"cell_sgd launches {launches}, trainer "
+                             f"{FusedStreamTrainer.launches}, want "
+                             f"{EPOCHS} x {k}")
+    if any(c.launches for c in counts.values()):
+        raise AssertionError("another kernel ran on the streamed path")
+    rm = [float(x.split("tRMSE=")[1]) for x in lines if "tRMSE=" in x]
+    if not (len(rm) == EPOCHS and all(map(math.isfinite, rm))
+            and rm[-1] < rm[0]):
+        raise AssertionError(f"tRMSE not finite and falling: {rm}")
+    ends = [float(x.split("\t")[1]) for x in lines if x.startswith("iter#")]
+    log(f"# phase 26: CLI --stream mf, dim {DIM}, {EPOCHS} epochs in "
+        f"{wall:.1f} s (the test file's read included); ShardStore of "
+        f"{r.n} ratings, {k} shard(s) of {r.store.tiles_per_shard} user "
+        f"tiles, built in {r.store_s:.1f} s (scan and scatter: two text "
+        f"passes); tiles {r.tile_u}x{r.tile_v}, batch {r.batch}")
+    for it in range(1, EPOCHS + 1):
+        es = [e for e in r.shard_log if e["epoch"] == it]
+        plan_s, up, ker = shard_times(es)
+        log(f"# phase 26: epoch {it}: plan {'cache load' if es[0]['cached'] else 'build'} "
+            f"{plan_s:.2f} s, upload {up:.1f} ms, kernel {ker:.3f} ms "
+            f"({[e['kernel'][0].elapsed_time(e['kernel'][1]) for e in es]}"
+            f" a shard), wall {ends[it - 1] - (ends[it - 2] if it > 1 else 0):.2f}"
+            f" s{' (the ShardStore included)' if it == 1 else ''}, tRMSE "
+            f"{rm[it - 1]:.6f}, "
+            f"{r.n / (ker / 1e3):.0f} rating updates/s of kernel time")
+    log(f"# phase 26: peak device memory of the run {peak / 2**30:.2f} GiB, "
+        f"of which {held / 2**30:.2f} GiB was held before it")
+    log(f"# phase 26: tRMSE streamed {rm}; in-memory gen-1 (phase 4) "
+        f"{gen1_rm if gen1_rm is not None else 'not run'}")
+    init = init_mf(train.nu, train.nv, DIM, gb,
+                   torch.Generator().manual_seed(0), DEVICE)
+    eta, lam = 2e-2, 5e-3  # the CLI's defaults at epoch 1
+    plan = r.first
+    times, out = {"kernel": [], "plain": []}, {}
+    for which in ("plain", "kernel", "kernel"):
+        tabs = r.pad(init)
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        if which == "kernel":
+            r._launch(tabs, plan, eta, lam, gb)
+        else:
+            tc.cell_epoch_reference(*tabs, plan, eta, lam, gb,
+                                    max(1.0, 0.2 / eta), DIM, 8, 8,
+                                    r.work_dtype, False, True)
+        b.record()
+        torch.cuda.synchronize()
+        times[which].append(a.elapsed_time(b))
+        out.setdefault(which, r.trim(tabs))
+    n0 = int(r.shard_log[0]["n_real"])
+    for what, ts in times.items():
+        log(f"# phase 26: epoch 1, shard 0 {what}: ms "
+            f"{[round(x, 3) for x in ts]}, rating updates/s "
+            f"{[round(n0 / (x / 1e3)) for x in ts]}")
+    err = hold(f"epoch 1's streamed launch ({plan.u.shape[0]} batches, {n0} "
+               "ratings, groups 8/8, no saturation), kernel vs plain",
+               out["kernel"], out["plain"], init, ATOL_CELL_FULL, 26)
+    rows_u, rows_v = touched_rows(plan)
+    timed = (median(times["kernel"]), median(times["plain"]),
+             window_bound(plan, rows_u, rows_v, n0, DIM))
+    r.first = None
+    return launches, timed, err, k
+
+
+def phase_stream_shards(torch, tc, train, test):
+    """Phase 27: ``FusedStreamTrainer`` on the stand-in's raw text with
+    ``mem_limit`` 2,500,000 (4 shards), dim 64, one epoch (plan variant 1,
+    built and cached): its wall time beside the sums of the shards' plan
+    builds (the Prefetcher's thread), uploads and kernels, which shows how
+    much the Prefetcher overlaps; one launch per shard, finite tables."""
+    from tpu_mf_torch.io.stream_fused import FusedStreamTrainer
+    from tpu_mf_torch.models.mf import init_mf
+
+    paths = raw_standin(train, test, 27)
+    gb = train.mean_rating()
+    t = time.perf_counter()
+    r = FusedStreamTrainer(paths[0], batch=8192, mem_limit=STREAM_MEM_LIMIT,
+                           plan_cache=2, device=DEVICE)
+    store_s = time.perf_counter() - t
+    try:
+        tabs = r.pad(init_mf(r.nu, r.nv, DIM, gb,
+                             torch.Generator().manual_seed(0), DEVICE))
+        before = tc.cell_epoch.launches
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        r.epoch(tabs, 2e-2, 5e-3, gb, epoch_idx=1)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        k = r.store.n_shards
+        if tc.cell_epoch.launches != before + k or k != STREAM_SHARDS:
+            raise AssertionError(f"{k} shards, "
+                                 f"{tc.cell_epoch.launches - before} launches")
+        if not all(bool(torch.isfinite(x).all()) for x in tabs):
+            raise AssertionError("non-finite tables after the epoch")
+        plan_s, up, ker = shard_times(r.shard_log)
+        log(f"# phase 27: {k} shards of {r.store.tiles_per_shard} user "
+            f"tiles ({[e['n_real'] for e in r.shard_log]} ratings), "
+            f"ShardStore {store_s:.1f} s; one epoch {wall:.2f} s wall: plan "
+            f"builds {plan_s:.2f} s ({[round(e['plan_s'], 2) for e in r.shard_log]}), "
+            f"uploads {up:.1f} ms, kernels {ker:.1f} ms; the epoch's wall "
+            f"beyond the plan builds {wall - plan_s:.2f} s")
+    finally:
+        r.close()
+
+
+@contextlib.contextmanager
+def timed_parse():
+    """For the ``with`` block, every batch ``io/stream.py`` parses is timed
+    on the thread that parses it (``time.thread_time``: that thread's CPU
+    seconds, the waits for the interpreter lock left out); yields the
+    one-element list the seconds add to."""
+    from tpu_mf_torch.io import stream as tstream
+
+    base, spent = tstream.stream_batches, [0.0]
+
+    def timed(path, batch_size):
+        it = base(path, batch_size)
+        while True:
+            t = time.thread_time()
+            b = next(it, None)
+            spent[0] += time.thread_time() - t
+            if b is None:
+                return
+            yield b
+
+    tstream.stream_batches = timed
+    try:
+        yield spent
+    finally:
+        tstream.stream_batches = base
+
+
+def phase_stream_dp_ad(torch, train, test):
+    """Phase 28: ``--alg dpmf --stream`` (dim 128, the SGLD step of phases
+    12-13) and ``--alg admf --stream`` (dim 128, phase 16's lam, eta and
+    eta_reg, the test set's halves as validation and test files) through
+    the CLI on the stand-in's raw text, 1 round / epoch each, the
+    per-batch path (no kernel launch). Each round's time beside the CPU
+    seconds its parse took on the Prefetcher's thread (``timed_parse``):
+    dpmf parses the file twice a round (the SGLD pass and the streamed
+    train MSE), admf once; the set-up scan before the round is not in
+    either."""
+    paths = raw_standin(train, test, 28)
+    valid, rest = test.split(0.5, seed=3)
+    with tempfile.TemporaryDirectory() as d:
+        vpath, tpath = os.path.join(d, "valid.txt"), os.path.join(d, "t.txt")
+        write_raw(vpath, valid)
+        write_raw(tpath, rest)
+        base = ["--stream", "--train", paths[0], "--nu", str(train.nu),
+                "--nv", str(train.nv), "--iter", "1", "--bias",
+                repr(train.mean_rating()), "--device", DEVICE]
+        runs = {
+            "dpmf": ["--alg", "dpmf", "--test", paths[1], "--dim",
+                     str(DIM_DP), "--eta", repr(SCAL_DP / len(train)),
+                     "--hyperb", "1000"],
+            "admf": ["--alg", "admf", "--valid", vpath, "--test", tpath,
+                     "--dim", str(DIM_AD), "--lambda", repr(LAM_AD),
+                     "--eta", repr(ETA_AD), "--eta_reg", repr(ETA_REG_AD)]}
+        for alg, extra in runs.items():
+            counts = stream_counts()
+            t = time.perf_counter()
+            with timed_parse() as parse:
+                lines = run_cli(base + extra)
+            wall = time.perf_counter() - t
+            line = [x for x in lines if x.startswith(
+                "round #1" if alg == "dpmf" else "iter#1")]
+            if len(line) != 1 or "nan" in line[0]:
+                raise AssertionError(f"{alg}: no finite first round")
+            if any(c.launches for c in counts.values()):
+                raise AssertionError(f"{alg}: a kernel ran on the per-batch "
+                                     "path")
+            secs = float(line[0].split("\t")[-1 if alg == "dpmf" else 1])
+            log(f"# phase 28: --alg {alg} --stream: round 1 {secs:.1f} s, "
+                f"of which its parse took {parse[0]:.1f} s of the "
+                f"Prefetcher thread's CPU time ({2 if alg == 'dpmf' else 1} "
+                f"pass(es)); the rest, {secs - parse[0]:.1f} s, is the "
+                f"consumer's device work, staging and waits; the CLI call "
+                f"{wall:.1f} s (the set-up scan of the file and the test and "
+                f"valid reads included)")
+
+
+def phase_measure(torch, params, train, test, cli_line):
+    """Phase 29: ``--measure 1`` on phase 3's dense dim-64 model:
+    ``ranking_metrics`` (recall / precision / ndcg at 10, the train items
+    masked) timed on the card, beside the line phase 24's resumed CLI run
+    printed; then ``recommend_topk`` for 1,024 users held against a
+    float64 CPU computation of the same scores: every returned item's
+    score within 1e-4 of the float64 top-10's, and the ids equal where the
+    float64 gaps to the items before and after exceed 1e-4."""
+    from tpu_mf_torch.models.eval import ranking_metrics
+    from tpu_mf_torch.models.serving import recommend_topk
+
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    m = ranking_metrics(params, test, train_ds=train, k=10)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t
+    log(f"# phase 29: ranking_metrics on phase 3's model in {secs:.2f} s: "
+        f"recall@10={m['recall@k']:f}\tprecision@10={m['precision@k']:f}"
+        f"\tndcg@10={m['ndcg@k']:f}\tn_users={m['n_users']} "
+        f"(n_truncated {m['n_truncated']}); phase 24's CLI: {cli_line}")
+    step = max(1, train.nu // 1024)
+    users = torch.arange(0, min(1024, train.nu) * step, step, device=DEVICE)
+    idx, vals = recommend_topk(params, users, 10)
+    f64 = [x.detach().double().cpu() for x in params[:4]]
+    u = users.cpu()
+    ref = (f64[0][u] @ f64[1].T + f64[2][u, None] + f64[3][None]
+           + float(params.gb))
+    top, top_idx = torch.topk(ref, 11, dim=1)
+    got = ref.gather(1, idx.cpu())
+    err = float((got - top[:, :10]).abs().max())
+    verr = float((vals.double().cpu() - top[:, :10]).abs().max())
+    gaps = top[:, :10] - top[:, 1:11]  # each position to the next
+    prev = torch.cat([torch.full_like(gaps[:, :1], math.inf), gaps[:, :9]], 1)
+    sure = (gaps > 1e-4) & (prev > 1e-4)
+    same = bool((idx.cpu()[sure] == top_idx[:, :10][sure]).all())
+    log(f"# phase 29: recommend_topk for {len(users)} users vs float64 on "
+        f"the CPU: score of the returned items {err:.3e} from the float64 "
+        f"top-10 (limit 1e-4), returned scores {verr:.3e}; ids equal at "
+        f"all {int(sure.sum())} positions with gaps over 1e-4: {same}")
+    if not (err <= 1e-4 and verr <= 1e-4 and same
+            and 0.0 <= m["recall@k"] <= 1.0 and m["n_users"] > 0):
+        raise AssertionError("recommend_topk disagrees with float64")
 
 
 def entry(name, replaces, launches, err, timed, source=None, walk=None):
@@ -2511,9 +2872,9 @@ def entry(name, replaces, launches, err, timed, source=None, walk=None):
 
 
 # phases that run together: a later one reads what the first one made
-PHASE_GROUPS = ((1,), (2,), (3, 5, 24, 25), (4,), (6,), (7, 8, 9, 10),
+PHASE_GROUPS = ((1,), (2,), (3, 5, 24, 25, 29), (4,), (6,), (7, 8, 9, 10),
                 (11,), (12, 14), (13,), (15,), (16, 18), (17,), (19,), (20,),
-                (21,), (22,), (23,))
+                (21,), (22,), (23,), (26,), (27,), (28,))
 
 
 def parse_args(argv):
@@ -2583,7 +2944,7 @@ def main(argv=None) -> int:
     log(f"# phases to run: {sorted(phases)}")
     t_start = time.perf_counter()
     card = phase_build()
-    if want(*range(2, 11), 12, 13, 14, 16, 17, 18, 20, 21):
+    if want(*range(2, 11), 12, 13, 14, 16, 17, 18, 20, 21, 26, 27, 28):
         train, test = load_data()
     cell_src = "tpu_mf_torch/csrc/cell_sgd.cu"
     sgld_src = "tpu_mf_torch/csrc/sgld_cells.cu"
@@ -2599,9 +2960,10 @@ def main(argv=None) -> int:
         cfg, params, rm, launches = phase_train(torch, train, test)
         dense_t = phase_time(torch, td, cfg, train, test, params, rm)
         phase_checkpoint(torch, cfg, params)
-        phase_resume(torch, cfg, train, test, params, rm)
+        ranking = phase_resume(torch, cfg, train, test, params, rm)
         phase_bf16(torch, train, test, rm)
-        lap("3, 5, 24, 25")
+        phase_measure(torch, params, train, test, ranking)
+        lap("3, 5, 24, 25, 29")
         if want(2):
             ent["dense_cell"] = entry(
                 "dense_cell", "tpu_mf/ops/pallas_sgd_dense.py:239", launches,
@@ -2717,14 +3079,29 @@ def main(argv=None) -> int:
         ent["phi_shard"] = dict(entry(
             "phi_shard", "tpu_mf/ops/pallas_sgd.py:412", shard_launches,
             shard_err, shard_t, cell_src), shards=k_shards)
+    if want(26):
+        stream_launches, stream_t, stream_err, stream_shards = phase_stream(
+            torch, tc, train, test, crm if want(4) else None)
+        lap("26")
+        # ms, plain_ms, max_abs_err and the bound are of epoch 1's launch
+        # (its first shard), launches of the main path's 3 epochs
+        ent["stream"] = dict(entry(
+            "stream", "tpu_mf/ops/pallas_sgd.py:412", stream_launches,
+            stream_err, stream_t, cell_src), shards=stream_shards)
+    if want(27):
+        phase_stream_shards(torch, tc, train, test)
+        lap("27")
+    if want(28):
+        phase_stream_dp_ad(torch, train, test)
+        lap("28")
     bad = sorted(m for m in sys.modules
                  if m.split(".")[0] in ("jax", "jaxlib", "tpu_mf"))
     if bad:
         raise AssertionError(f"the port imported JAX or tpu_mf: {bad[:5]}")
     log(f"# phases {sorted(phases)}: {time.perf_counter() - t_start:.1f} s")
-    kinds = [k for k in ("dense_cell", "cell_sgd", "phi_shard", "packed",
-                         "slot", "sgld", "slot_sgld", "adreg", "slot_adreg",
-                         "mega", "free")
+    kinds = [k for k in ("dense_cell", "cell_sgd", "phi_shard", "stream",
+                         "packed", "slot", "sgld", "slot_sgld", "adreg",
+                         "slot_adreg", "mega", "free")
              if k in ent]
     log(json.dumps({"kernels": [ent[k] for k in kinds]}))
     log(card)
@@ -2735,4 +3112,9 @@ def main(argv=None) -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        rc = main()
+    finally:
+        if _RAW:
+            shutil.rmtree(_RAW["dir"], ignore_errors=True)
+    sys.exit(rc)

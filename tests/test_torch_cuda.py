@@ -962,3 +962,93 @@ def test_cell_kernel_at_groups(cuda, mxu, atol, groups):
     assert tc.cell_epoch.launches == before + 1
     for a, b in zip(base, ref):
         assert float((a - b).abs().max()) <= atol
+
+
+def stream_file(tmp_path):
+    """A proto-frame training file of 300 x 200, 16k ratings."""
+    from tpu_mf_torch.data.proto import write_block_frames
+
+    ds = synthetic_ratings(300, 200, 16000, rank=3, noise=0.2, seed=8)
+    path = str(tmp_path / "train.pb")
+    write_block_frames(path, ds)
+    return path, ds
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mxu,atol", [("float32", 1e-4), ("bfloat16", 2e-3)])
+def test_fused_stream_trainer_on_gpu_matches_cpu(cuda, tmp_path, mxu, atol):
+    """FusedStreamTrainer on cuda (one cell_sgd launch per shard, plans
+    staged by the Prefetcher on its side stream) against the same trainer
+    on the CPU (the kernel's plain version), 2 epochs over 3+ shards; the
+    kernel's tolerances, carried by the second epoch."""
+    from tpu_mf_torch.io.stream_fused import FusedStreamTrainer
+
+    path, ds = stream_file(tmp_path)
+    kw = dict(tile_u=32, tile_v=32, batch=256, mem_limit=4000, seed=2,
+              mxu=mxu)
+    gpu = FusedStreamTrainer(path, device=cuda, **kw)
+    cpu = FusedStreamTrainer(path, device="cpu", **kw)
+    assert gpu.store.n_shards >= 3
+    tabs = np_tables(gpu.nu, gpu.nv, 16, 3, float(ds.r.mean()))
+    tg = gpu.pad(params_from_numpy(*tabs, device=cuda))
+    tcpu = cpu.pad(params_from_numpy(*tabs, device="cpu"))
+    before, runs = tc.cell_epoch.launches, FusedStreamTrainer.launches
+    for it in (1, 2):
+        gpu.epoch(tg, 0.02 / it, 0.01, float(tabs[4]), epoch_idx=it)
+        cpu.epoch(tcpu, 0.02 / it, 0.01, float(tabs[4]), epoch_idx=it)
+    torch.cuda.synchronize()
+    assert tc.cell_epoch.launches == before + 2 * gpu.store.n_shards
+    assert FusedStreamTrainer.launches == runs + 2 * gpu.store.n_shards
+    for a, b in zip(gpu.trim(tg)[:4], cpu.trim(tcpu)[:4]):
+        assert float((a.cpu() - b).abs().max()) <= atol
+    assert all(e["kernel"][0].elapsed_time(e["kernel"][1]) >= 0
+               for e in gpu.shard_log)
+    gpu.close()
+    cpu.close()
+
+
+@pytest.mark.cuda
+def test_prefetcher_side_stream_under_allocator_pressure(cuda):
+    """Items staged on the Prefetcher's side stream arrive intact while
+    the consumer's stream is busy and the caching allocator recycles
+    memory: each batch is read on the consumer's stream after a long
+    kernel, the staged tensors are dropped, and new allocations churn
+    between batches; every sum equals the source's."""
+    from tpu_mf_torch.io.stream import Prefetcher
+
+    rng = np.random.default_rng(0)
+    src = [rng.integers(0, 1000, 1 << 20).astype(np.int64)
+           for _ in range(24)]
+    pf = Prefetcher(iter(src), fly=4, device=cuda)
+    sums = []
+    busy = torch.randn(2048, 2048, device=cuda)
+    for x in pf:
+        for _ in range(8):  # keep the consumer's stream busy
+            busy = busy @ busy
+            busy /= busy.norm()
+        sums.append(x.sum())
+        del x
+        junk = [torch.empty(1 << 20, dtype=torch.int64, device=cuda)
+                .fill_(-1) for _ in range(4)]
+        del junk
+    pf.close()
+    torch.cuda.synchronize()
+    assert [int(s) for s in sums] == [int(a.sum()) for a in src]
+
+
+@pytest.mark.cuda
+def test_streamed_mf_raises_when_the_kernel_cannot_build(cuda, tmp_path,
+                                                         monkeypatch):
+    """A streamed --alg mf run on cuda whose kernel cannot be built raises;
+    it does not carry on per batch or on the CPU."""
+    from tpu_mf_torch.train.loop import train_mf_stream
+
+    path, _ = stream_file(tmp_path)
+
+    def fail():
+        raise RuntimeError("nvcc failed on cell_sgd.cu")
+
+    monkeypatch.setattr(tc, "_cell_lib", fail)
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        train_mf_stream(TrainConfig(dim=16, iters=1), path, device=cuda,
+                        log=lambda _: None)

@@ -348,8 +348,9 @@ def test_cli_metrics_and_trace(tmp_path):
 
 def test_port_runs_without_jax(tmp_path):
     """A fresh interpreter in which tpu_mf cannot be imported runs the CPU
-    slice through the CLI (--alg mf, --alg dpmf and --alg admf, and --alg
-    mf with --resume: 2 epochs, then resumed to 3) and the fused dim-8
+    slice through the CLI (--alg mf, --alg dpmf and --alg admf, each also
+    with --stream; --alg mf with --resume: 2 epochs, then resumed to 3;
+    --measure 1) and the fused dim-8
     schedule (packed, then dense), a fused AdaptReg epoch pair, one mega,
     one free-column and one item-sharded epoch on CPU tensors, and imports
     neither JAX nor any module of tpu_mf."""
@@ -359,9 +360,14 @@ def test_port_runs_without_jax(tmp_path):
     ad_args = args + ["--alg", "admf", "--valid", str(tmp_path / "test.csv"),
                       "--result", str(tmp_path / "ad")]
     rs_args = args + ["--result", str(tmp_path / "rs"), "--resume"]
+    st_args = [args + ["--stream"], dp_args + ["--stream"],
+               ad_args + ["--stream"]]
+    ms_args = args + ["--measure", "1"]
     code = f"""
 import sys
 sys.modules["tpu_mf"] = None  # any import of the JAX package fails
+import torch
+torch.set_num_threads(1)  # as the test processes: no oversubscription
 from tpu_mf_torch.cli import main
 from tpu_mf_torch.config import TrainConfig
 from tpu_mf_torch.data.coo import synthetic_ratings
@@ -373,6 +379,9 @@ assert main({dp_args!r}) == 0
 assert main({ad_args!r}) == 0
 assert main({rs_args!r}) == 0
 assert main({rs_args!r} + ["--iter", "3"]) == 0
+for a in {st_args!r}:
+    assert main(a) == 0
+assert main({ms_args!r}) == 0
 tr, te = synthetic_ratings(200, 150, 6000, rank=3, noise=0.2,
                            seed=0).split(0.1, seed=1)
 cfg = TrainConfig(dim=8, iters=2, eta=0.04, gam=2.0, gb=tr.mean_rating())
@@ -414,12 +423,13 @@ assert bad == ["tpu_mf"] and sys.modules["tpu_mf"] is None, bad
     proc = subprocess.run([sys.executable, "-c", code], cwd=tmp_path, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr[-2000:]
-    assert proc.stdout.count("iter#2") == 5
+    assert proc.stdout.count("iter#2") == 8
     assert proc.stdout.count("iter#3") == 1
     assert f"# resumed from round 2 ({tmp_path / 'rs'}.state)" in proc.stdout
     assert (tmp_path / "rs_3").stat().st_size > 0
     assert "# lane-packed kernel: epochs 1..1" in proc.stdout
-    assert proc.stdout.count("round #2\t") == 1
+    assert proc.stdout.count("round #2\t") == 2
+    assert proc.stdout.count("recall@10=") == 1
     assert (tmp_path / "dp_2").stat().st_size > 0
     assert (tmp_path / "ad_2").stat().st_size > 0
 
@@ -435,10 +445,20 @@ def test_cli_cuda_without_gpu_fails(tmp_path):
 
 
 def test_entry_points_default_to_cuda():
-    """train_mf, train_dpmf, train_admf, init_dpmf, init_admf, the
-    checkpoint loaders and every runner run on the card unless the caller
-    asks for the CPU."""
+    """train_mf, train_dpmf, train_admf, their streamed counterparts,
+    init_dpmf, init_admf, the checkpoint loaders, every runner, the
+    streamed trainer, the Prefetcher and the grid tool run on the card
+    unless the caller asks for the CPU."""
     import inspect
+
+    from tpu_mf_torch.io.stream import Prefetcher
+    from tpu_mf_torch.io.stream_fused import FusedStreamTrainer
+    from tpu_mf_torch.tools.grid import build_parser as grid_parser
+    from tpu_mf_torch.train.loop import (
+        train_admf_stream,
+        train_dpmf_stream,
+        train_mf_stream,
+    )
 
     from tpu_mf_torch.io.checkpoint import load_dpmf_binary, load_mf_binary
     from tpu_mf_torch.models.admf import init_admf
@@ -459,15 +479,88 @@ def test_entry_points_default_to_cuda():
                load_mf_binary, load_dpmf_binary, CellEpochRunner,
                DenseEpochRunner, PackedEpochRunner, SlotEpochRunner,
                MegaEpochRunner, FreeEpochRunner, SgldCellRunner,
-               SlotSgldRunner, AdRegCellRunner, SlotAdRegRunner):
+               SlotSgldRunner, AdRegCellRunner, SlotAdRegRunner,
+               train_mf_stream, train_dpmf_stream, train_admf_stream,
+               FusedStreamTrainer, Prefetcher):
         assert inspect.signature(fn).parameters["device"].default == "cuda"
+    assert grid_parser().get_default("device") == "cuda"
 
 
 @pytest.mark.parametrize("flag", [["--stream"], ["--measure", "1"]])
-def test_cli_unported_modes_raise(tmp_path, flag):
-    """--stream and --measure 1 raise NotImplementedError naming their
-    ROADMAP item; --alg admf is ported and runs (test_torch_admf.py)."""
+def test_cli_stream_and_measure_modes_run(tmp_path, capsys, flag):
+    """--stream trains out of core (the per-batch path on the CPU) and
+    --measure 1 prints the ranking line after training, each on --device
+    cpu: finite, falling tRMSE over 2 epochs, and for --measure 1 recall,
+    precision and ndcg at 10 in [0, 1] over the test set's users."""
     from tpu_mf_torch.cli import main
 
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
-        main(write_data(tmp_path) + ["--device", "cpu"] + flag)
+    assert main(write_data(tmp_path) + ["--device", "cpu", "--eta", "0.05"]
+                + flag) == 0
+    lines = capsys.readouterr().out.splitlines()
+    rm = trmse(lines)
+    assert len(rm) == 2 and np.isfinite(rm).all() and rm[1] < rm[0]
+    ranking = [x for x in lines if x.startswith("recall@10=")]
+    if flag[0] == "--measure":
+        (line,) = ranking
+        fields = dict(f.split("=") for f in line.split("\t"))
+        assert set(fields) == {"recall@10", "precision@10", "ndcg@10",
+                               "n_users"}
+        assert all(0.0 <= float(fields[k]) <= 1.0 for k in
+                   ("recall@10", "precision@10", "ndcg@10"))
+        assert int(fields["n_users"]) > 50
+    else:
+        assert not ranking
+
+
+def test_cli_stream_mesh_raises(tmp_path):
+    """--stream --mesh 2 raises NotImplementedError naming the ROADMAP item
+    that ports multi-device training."""
+    from tpu_mf_torch.cli import main
+
+    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
+        main(write_data(tmp_path) + ["--device", "cpu", "--stream",
+                                     "--mesh", "2"])
+
+
+def test_cli_stream_infers_dims_without_loading(tmp_path, capsys,
+                                                monkeypatch):
+    """The stream path never loads the training set whole: without
+    --nu/--nv its dims come from one scan, and read_any sees only the
+    test file (tpu_mf's test_cli_stream_infers_dims_without_loading)."""
+    import tpu_mf_torch.data.textfmt as textfmt
+    from tpu_mf_torch.cli import main
+
+    real, calls = textfmt.read_any, []
+
+    def spy(path, **kw):
+        calls.append(path)
+        return real(path, **kw)
+
+    monkeypatch.setattr(textfmt, "read_any", spy)
+    args = write_data(tmp_path)
+    for flag in ("--nu", "--nv"):
+        i = args.index(flag)
+        del args[i:i + 2]
+    assert main(args + ["--device", "cpu", "--eta", "0.03", "--stream"]) == 0
+    assert calls == [str(tmp_path / "test.csv")]
+    assert capsys.readouterr().out.count("tRMSE=") == 2
+
+
+def test_grid_runs_the_port_on_cpu(tmp_path, capsys):
+    """tools/grid.py drives the port's trainers over the product of its
+    axes on --device cpu: one header a grid point, each followed by its
+    epochs' lines; --device cuda without a GPU exits non-zero."""
+    from tpu_mf_torch.tools.grid import main as grid
+
+    args = write_data(tmp_path)
+    keep = {a: args[args.index(a) + 1] for a in ("--train", "--test")}
+    base = [x for k, v in keep.items() for x in (k, v)] + [
+        "--iter", "2", "--dim", "4,8", "--eta", "0.01", "--bias", "3.0"]
+    assert grid(base + ["--device", "cpu"]) == 0
+    lines = capsys.readouterr().out.splitlines()
+    heads = [x for x in lines if x.startswith("### mf ")]
+    assert len(heads) == 2
+    assert "_dim4_" in heads[0] and "_dim8_" in heads[1]
+    assert len(trmse(lines)) == 4
+    if not torch.cuda.is_available():
+        assert grid(base) != 0

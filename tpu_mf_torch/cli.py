@@ -6,8 +6,11 @@ Usage:
         --dim 64 --iter 15 --result model
 
 ``--alg mf``, ``--alg dpmf`` and ``--alg admf`` (which needs ``--valid``)
-on one device, in memory, are ported so far; the other modes raise
-``NotImplementedError`` naming the ROADMAP item that ports them.
+run on one device, in memory or out of core (``--stream``: the training
+file is never loaded whole; dims come from ``--nu/--nv`` or one scan of
+it), and ``--measure 1`` prints recall, precision and ndcg at 10 after
+training. ``--mesh > 1`` raises ``NotImplementedError`` naming the ROADMAP
+item that ports it.
 """
 
 from __future__ import annotations
@@ -17,13 +20,6 @@ import dataclasses
 import sys
 
 from tpu_mf_torch.config import TrainConfig
-
-# Modes the port accepts but does not run yet, and the ROADMAP item for each.
-_NOT_PORTED = {
-    "stream": "--stream (ROADMAP Queue 1 item 9)",
-    "measure": "--measure 1 ranking metrics (ROADMAP Queue 1 item 11)",
-}
-
 
 def build_parser() -> argparse.ArgumentParser:
     """The flags and defaults of ``tpu_mf.cli`` (reference: src/main.cc:
@@ -43,7 +39,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--iter", type=int, default=15, dest="iters")
     p.add_argument("--nu", type=int, default=0)
     p.add_argument("--nv", type=int, default=0)
-    p.add_argument("--fly", type=int, default=8, help="accepted for parity")
+    p.add_argument("--fly", type=int, default=8,
+                   help="host prefetch depth of --stream's per-batch path "
+                        "(reference: TBB pipeline tokens)")
     p.add_argument("--stride", type=int, default=2, help="accepted for parity")
     p.add_argument("--eta", type=float, default=2e-2)
     p.add_argument("--lambda", type=float, default=5e-3, dest="lam")
@@ -108,10 +106,6 @@ def main(argv=None) -> int:
     if cfg.resume and not cfg.result:
         print("--resume requires --result (checkpoint prefix)", file=sys.stderr)
         return 1
-    why = [_NOT_PORTED[k] for k, on in (
-        ("stream", args.stream), ("measure", cfg.measure == 1)) if on]
-    if why:
-        raise NotImplementedError(f"tpu_mf_torch does not port {why[0]} yet")
 
     import numpy as np
     import torch
@@ -125,23 +119,54 @@ def main(argv=None) -> int:
     from tpu_mf_torch.data.textfmt import read_any
     from tpu_mf_torch.io.checkpoint import load_mf_binary, save_mf_binary, save_npz
 
-    train_ds = read_any(cfg.train, nu=cfg.nu or None, nv=cfg.nv or None)
-    test_ds = (read_any(cfg.test, nu=train_ds.nu, nv=train_ds.nv)
-               if cfg.test else None)
-    if cfg.alg == "dpmf":
-        return _main_dpmf(cfg, train_ds, test_ds, device)
-    if cfg.alg == "admf":
-        return _main_admf(cfg, train_ds, test_ds, device)
+    if args.stream:
+        # out of core: never load the training file; table sizes come from
+        # --nu/--nv or one bounded-memory scan of it
+        if cfg.nu and cfg.nv:
+            nu, nv = cfg.nu, cfg.nv
+        else:
+            from tpu_mf_torch.io.stream import scan_dims
 
-    from tpu_mf_torch.train.loop import train_mf
+            nu, nv, _ = scan_dims(cfg.train)
+        train_ds = None
+    else:
+        train_ds = read_any(cfg.train, nu=cfg.nu or None, nv=cfg.nv or None)
+        nu, nv = train_ds.nu, train_ds.nv
+    test_ds = read_any(cfg.test, nu=nu, nv=nv) if cfg.test else None
+
+    def report_ranking(params):
+        # --measure 1: ranking quality beside RMSE (the reference's
+        # --measure only "supports RMSE", main.cc:33; this is additive)
+        if cfg.measure != 1 or test_ds is None:
+            return
+        from tpu_mf_torch.models.eval import ranking_metrics
+
+        m = ranking_metrics(params, test_ds, train_ds=train_ds, k=10)
+        print(f"recall@{m['k']}={m['recall@k']:f}\t"
+              f"precision@{m['k']}={m['precision@k']:f}\t"
+              f"ndcg@{m['k']}={m['ndcg@k']:f}\tn_users={m['n_users']}")
+
+    if cfg.alg == "dpmf":
+        return _main_dpmf(cfg, train_ds, test_ds, device, args.stream,
+                          report_ranking)
+    if cfg.alg == "admf":
+        return _main_admf(cfg, train_ds, test_ds, nu, nv, device,
+                          args.stream, report_ranking)
+
+    from tpu_mf_torch.train.loop import train_mf, train_mf_stream
 
     params0 = None
     if cfg.model:
         # warm start adopts the checkpoint's lambda (model.cc:81)
         params0, lam = load_mf_binary(cfg.model, gb=cfg.gb, device=device)
         cfg = dataclasses.replace(cfg, lam=lam)
-    params = train_mf(cfg, train_ds, test_ds=test_ds, params=params0,
-                      device=device)
+    if args.stream:
+        params = train_mf_stream(cfg, cfg.train, test_ds=test_ds,
+                                 params=params0, nu=nu, nv=nv, device=device)
+    else:
+        params = train_mf(cfg, train_ds, test_ds=test_ds, params=params0,
+                          device=device)
+    report_ranking(params)
     if cfg.result:
         if cfg.result.endswith(".npz"):
             save_npz(cfg.result, params, lam=np.float32(cfg.lam))
@@ -150,18 +175,25 @@ def main(argv=None) -> int:
     return 0
 
 
-def _main_dpmf(cfg, train_ds, test_ds, device) -> int:
+def _main_dpmf(cfg, train_ds, test_ds, device, stream, report_ranking
+               ) -> int:
     """--alg dpmf: ``--model`` is a hyper-only warm start (main.cc:57);
     checkpoints on the reference's cadence and ``{result}_{iters}``."""
     import torch
 
     from tpu_mf_torch.io.checkpoint import load_dpmf_hyper, save_dpmf_binary
     from tpu_mf_torch.models.dpmf import init_dpmf
-    from tpu_mf_torch.train.loop import _storage_dtype, train_dpmf
+    from tpu_mf_torch.train.loop import (
+        _storage_dtype,
+        train_dpmf,
+        train_dpmf_stream,
+    )
 
-    state0 = None
+    state0 = hyper0 = None
     if cfg.model:
-        lr, lub, lvb, lu, lv = load_dpmf_hyper(cfg.model)
+        hyper0 = load_dpmf_hyper(cfg.model)
+    if cfg.model and not stream:
+        lr, lub, lvb, lu, lv = hyper0
         state0 = init_dpmf(train_ds, cfg.dim, cfg.gb,
                            torch.Generator().manual_seed(cfg.seed), device,
                            dtype=_storage_dtype(cfg))
@@ -181,25 +213,37 @@ def _main_dpmf(cfg, train_ds, test_ds, device) -> int:
                              state.lambda_u.cpu().numpy(),
                              state.lambda_v.cpu().numpy())
 
-    state = train_dpmf(cfg, train_ds, test_ds=test_ds, state=state0,
-                       save_fn=save_fn, device=device)
+    if stream:
+        state = train_dpmf_stream(cfg, cfg.train, test_ds=test_ds,
+                                  save_fn=save_fn, hyper0=hyper0,
+                                  device=device)
+    else:
+        state = train_dpmf(cfg, train_ds, test_ds=test_ds, state=state0,
+                           save_fn=save_fn, device=device)
+    report_ranking(state.params)
     save_fn(state, cfg.iters)
     return 0
 
 
-def _main_admf(cfg, train_ds, test_ds, device) -> int:
+def _main_admf(cfg, train_ds, test_ds, nu, nv, device, stream,
+               report_ranking) -> int:
     """--alg admf: needs --valid; --model is not read (as in tpu_mf);
     writes {result}_{iters} as the reference MF binary with lam_u."""
     from tpu_mf_torch.data.textfmt import read_any
     from tpu_mf_torch.io.checkpoint import save_mf_binary
-    from tpu_mf_torch.train.loop import train_admf
+    from tpu_mf_torch.train.loop import train_admf, train_admf_stream
 
     if not cfg.valid:
         print("admf requires --valid", file=sys.stderr)
         return 1
-    valid_ds = read_any(cfg.valid, nu=train_ds.nu, nv=train_ds.nv)
-    state = train_admf(cfg, train_ds, valid_ds, test_ds=test_ds,
-                       device=device)
+    valid_ds = read_any(cfg.valid, nu=nu, nv=nv)
+    if stream:
+        state = train_admf_stream(cfg, cfg.train, valid_ds, test_ds=test_ds,
+                                  device=device)
+    else:
+        state = train_admf(cfg, train_ds, valid_ds, test_ds=test_ds,
+                           device=device)
+    report_ranking(state.params)
     if cfg.result:
         save_mf_binary(f"{cfg.result}_{cfg.iters}", state.params,
                        float(state.lam_u))

@@ -1,5 +1,5 @@
-"""Text rating formats of the reference ETL chain (the port's copy of the
-readers in ``tpu_mf/data/textfmt.py``).
+"""Text rating formats of the reference ETL chain (the port's copy of
+``tpu_mf/data/textfmt.py``).
 
 Three formats exist in the reference's data pipeline (reference:
 data/getdata.cc, data/rawToProto.py):
@@ -13,7 +13,8 @@ data/getdata.cc, data/rawToProto.py):
    format is derived from.
 
 ``read_any`` detects the format, including the reference's protobuf frames
-(``data/proto.py``), and gives the same COO as ``tpu_mf``'s reader
+(``data/proto.py``), and gives the same COO as ``tpu_mf``'s reader;
+``write_raw`` and ``write_userwise`` write the same bytes as ``tpu_mf``'s
 (``tests/test_torch_copies.py``).
 """
 
@@ -44,6 +45,13 @@ def read_raw(path: str, nu=None, nv=None) -> RatingsCOO:
     return _finish(data[:, 0], data[:, 1], data[:, 2], nu, nv)
 
 
+def write_raw(path: str, ds: RatingsCOO) -> None:
+    with open(path, "w") as f:
+        f.write(f"{len(ds)}\n")
+        for u, v, r in zip(ds.u, ds.v, ds.r):
+            f.write(f"{u},{v},{r:.9g},0\n")
+
+
 def read_userwise(path: str, nu=None, nv=None) -> RatingsCOO:
     """Read userwise text: ``uid:`` then ``vid,rating`` lines
     (reference: getdata.cc:39-51, consumed by get_message getdata.cc:82-126)."""
@@ -62,6 +70,18 @@ def read_userwise(path: str, nu=None, nv=None) -> RatingsCOO:
                 vs.append(int(vid_s))
                 rs.append(float(r_s))
     return _finish(us, vs, rs, nu, nv)
+
+
+def write_userwise(path: str, ds: RatingsCOO) -> None:
+    order = np.argsort(ds.u, kind="stable")
+    with open(path, "w") as f:
+        last = None
+        for i in order:
+            u = int(ds.u[i])
+            if u != last:
+                f.write(f"{u}:\n")
+                last = u
+            f.write(f"{int(ds.v[i])},{float(ds.r[i]):.9g}\n")
 
 
 def read_movielens(path: str, sep=None, one_indexed=True, nu=None, nv=None) -> RatingsCOO:

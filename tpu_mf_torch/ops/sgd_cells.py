@@ -287,17 +287,23 @@ class DevicePlan(NamedTuple):
     tile_v: int
 
 
-def upload_plan(plan: CellPlan, device: torch.device | str) -> DevicePlan:
+def upload_plan(plan: CellPlan, device: torch.device | str,
+                put=None) -> DevicePlan:
+    """The plan on ``device``; ``put(array)`` makes each array's tensor
+    there (by default a copy on the current stream)."""
+    if put is None:
+        def put(a):
+            return torch.as_tensor(a).to(device)
+
     def cols(a):
-        return torch.as_tensor(a).to(device).transpose(1, 2).contiguous()
+        return put(a).transpose(1, 2).contiguous()
 
     ap_host = {g: _apply_flags(plan.gv, g) for g in (1, 2, 4)}
     ap_host[8] = np.ones_like(plan.gv, np.int32)
     return DevicePlan(
         u=cols(plan.u), v=cols(plan.v), r=cols(plan.r), w=cols(plan.w),
-        gu=torch.as_tensor(plan.gu).to(device),
-        gv=torch.as_tensor(plan.gv).to(device),
-        ap={g: torch.as_tensor(a).to(device) for g, a in ap_host.items()},
+        gu=put(plan.gu), gv=put(plan.gv),
+        ap={g: put(a) for g, a in ap_host.items()},
         gu_host=plan.gu, gv_host=plan.gv, ap_host=ap_host,
         tile_u=plan.tile_u, tile_v=plan.tile_v,
     )

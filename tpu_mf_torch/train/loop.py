@@ -14,6 +14,12 @@ fused kernels run (``_train_mf_fused``; ``_dpmf_runner``;
 ``sgld_epoch`` / ``adreg_epoch``. Ratings are shuffled on the host
 (``epoch_batches``), as ``tpu_mf`` does with ``device_shuffle=False``.
 
+Out of core (``--stream``), ``train_mf_stream``, ``train_dpmf_stream`` and
+``train_admf_stream`` never load the training file whole: streamed MF runs
+the gen-1 kernel a shard at a time (``io/stream_fused.py``) where
+``tpu_mf`` routes it to its fused kernel, and every other streamed epoch or
+round runs the batched update per parsed batch (``io/stream.py``).
+
 With ``cfg.resume`` and ``cfg.result`` every ``cfg.resume_every`` rounds
 write their state to ``<result>.state.r%06d.npz`` (``io/resume.py``), and a
 run starts after the newest such round. Every per-round seed and plan pick
@@ -455,11 +461,12 @@ def _dpmf_runner(cfg: TrainConfig, train_ds: RatingsCOO, state: DPMFState,
 
 @dataclasses.dataclass
 class _DpmfRun:
-    """What the rounds of one ``train_dpmf`` run share."""
+    """What the rounds of one ``train_dpmf`` or ``train_dpmf_stream`` run
+    share."""
 
     cfg: TrainConfig
-    train_ds: RatingsCOO
-    train: SimpleNamespace            # the training set on the device
+    train_ds: Optional[RatingsCOO]    # None where the rounds stream it
+    train: Optional[SimpleNamespace]  # the training set on the device
     test: Optional[SimpleNamespace]   # the test set on the device
     bound: float
     runner: Any                       # SGLD runner, or None: batched path
@@ -468,6 +475,8 @@ class _DpmfRun:
     save_fn: Optional[Callable]
     device: torch.device
     t0: float = 0.0
+    ntrain: int = 0                   # the training set's ratings
+    path: Optional[str] = None        # the streamed training file
 
 
 def _dpmf_setup(cfg: TrainConfig, train_ds: RatingsCOO,
@@ -479,7 +488,7 @@ def _dpmf_setup(cfg: TrainConfig, train_ds: RatingsCOO,
         test=_on_device(test_ds, device) if test_ds is not None else None,
         bound=dp_bound(cfg.epsilon, cfg.tau, train_ds.nv), runner=runner,
         log=log, obs=_Observer(cfg, len(train_ds), log), save_fn=save_fn,
-        device=device, t0=time.perf_counter())
+        device=device, t0=time.perf_counter(), ntrain=len(train_ds))
 
 
 def _dpmf_extras(state: DPMFState) -> dict:
@@ -529,12 +538,8 @@ def _dpmf_round(run: _DpmfRun, rnd: int, state: DPMFState) -> DPMFState:
     draws, the test RMSE and the round's line, metrics, and the
     checkpoint on the reference's cadence (round >= 100, round % 20 == 0)."""
     cfg, dev = run.cfg, run.device
-    ntrain = len(run.train_ds)
+    ntrain = run.ntrain
     eta_r = cfg.eta_at_cutoff(rnd)
-
-    def gen(offset):
-        return torch.Generator(device=dev).manual_seed(
-            _round_seed(cfg, offset))
 
     if run.runner is not None:
         scal = eta_r * ntrain * run.bound * float(state.lambda_r)
@@ -555,12 +560,33 @@ def _dpmf_round(run: _DpmfRun, rnd: int, state: DPMFState) -> DPMFState:
                    torch.as_tensor(r).to(dev), torch.as_tensor(w).to(dev))
         state = sgld_epoch(state, batches,
                            SgldHyper(eta_r, cfg.temp, run.bound,
-                                     float(ntrain)), gen(rnd))
-    state = finish_noise(state, eta_r, cfg.temp, gen(rnd + 500_000))
+                                     float(ntrain)), _round_gen(run, rnd))
+    state = finish_noise(state, eta_r, cfg.temp,
+                         _round_gen(run, rnd + 500_000))
     # the train SSE drives the lambda_r posterior; the reference's
     # "sample" is the whole training set (model.cc:273-274)
     train_mse = calc_mse(state.params, run.train.u, run.train.v, run.train.r,
                          cfg.eval_batch)
+    return _dpmf_finish(run, rnd, state, eta_r, train_mse,
+                        type(run.runner).__name__ if run.runner
+                        else "batched")
+
+
+def _round_gen(run: _DpmfRun, offset: int) -> torch.Generator:
+    """The round's generator at ``offset`` (noise: round, flush: round +
+    500,000), on the run's device."""
+    return torch.Generator(device=run.device).manual_seed(
+        _round_seed(run.cfg, offset))
+
+
+def _dpmf_finish(run: _DpmfRun, rnd: int, state: DPMFState, eta_r: float,
+                 train_mse: float, kernel: str) -> DPMFState:
+    """The end of a DP-SGLD round, after its SGLD pass, noise flush and
+    train MSE: the Gibbs draws, the test RMSE and the round's line,
+    metrics, and the checkpoint on the reference's cadence (round >= 100,
+    round % 20 == 0)."""
+    cfg, dev = run.cfg, run.device
+    ntrain = run.ntrain
     state = sample_hyper(
         state, train_mse * ntrain, float(ntrain), cfg.hypera, cfg.hyperb,
         np.random.default_rng([_round_seed(cfg, rnd + 1_000_000)
@@ -577,8 +603,7 @@ def _dpmf_round(run: _DpmfRun, rnd: int, state: DPMFState) -> DPMFState:
         run.log(f"round #{rnd}\tRMSE={np.sqrt(train_mse):f}\t{elapsed:f}")
     run.obs.epoch_done(
         rnd, params_fn=lambda: state.params,
-        extras_fn=lambda: _dpmf_extras(state), alg="dpmf",
-        kernel=type(run.runner).__name__ if run.runner else "batched",
+        extras_fn=lambda: _dpmf_extras(state), alg="dpmf", kernel=kernel,
         eta=eta_r,
         elapsed=elapsed, RMSE=float(np.sqrt(train_mse)), tRMSE=t_rmse,
         lambda_r=float(state.lambda_r))
@@ -820,5 +845,275 @@ def train_admf(
                                          obs, start)
             return _train_admf_batched(cfg, train_ds, valid_ds, test_ds,
                                        state, log, obs, start)
+    finally:
+        obs.close()
+
+
+# ---- out-of-core (--stream) ---------------------------------------------------
+
+def _test_on(test_ds: Optional[RatingsCOO], dev) -> Optional[SimpleNamespace]:
+    return _on_device(test_ds, dev) if test_ds is not None else None
+
+
+def train_mf_stream(
+    cfg: TrainConfig,
+    path: str,
+    test_ds: Optional[RatingsCOO] = None,
+    params: Optional[MFParams] = None,
+    nu: Optional[int] = None,
+    nv: Optional[int] = None,
+    log: Callable[[str], None] = print,
+    device: torch.device | str = "cuda",
+) -> MFParams:
+    """Out-of-core MF training from an on-disk stream (any format; reference:
+    the TBB read pipeline, src/mf.h:6-70), ``tpu_mf``'s route: with
+    ``cfg.use_pallas`` on a CUDA device, where ``pallas_eligible`` holds,
+    the fused kernel over a ShardStore (``io/stream_fused.py``: tiles
+    512x512, batch max(1024, batch_size)); otherwise the per-batch path
+    (``io/stream.py``), which re-parses the file every epoch.
+
+    ``params`` (if given) is copied, not modified; new tables are drawn as
+    ``train_mf`` draws them, at ``nu`` x ``nv`` or the file's scanned
+    dims. ``cfg.resume`` restarts after the newest state file's round."""
+    from tpu_mf_torch.data.streamfmt import scan_stats
+    from tpu_mf_torch.ops.sgd_cells import pallas_eligible
+
+    why = _unsupported(cfg)
+    if why is not None:
+        raise NotImplementedError(f"tpu_mf_torch does not port {why} yet")
+    device = torch.device(device)
+    if params is None:
+        if not (nu and nv):
+            nu, nv, _ = scan_stats(path)
+        params = init_mf(nu, nv, cfg.dim, cfg.gb,
+                         torch.Generator().manual_seed(cfg.seed), device,
+                         dtype=_storage_dtype(cfg))
+    else:
+        params = MFParams(*(t.to(device).clone() for t in params))
+    obs = _Observer(cfg, 0, log)
+    start, rparams, _ = obs.resume(device)
+    if rparams is not None:
+        params = rparams
+        log(f"# resumed from round {start} ({obs.prefix})")
+    use_fused = cfg.use_pallas and device.type == "cuda"
+    if use_fused and not pallas_eligible(params, cfg.batch_size):
+        use_fused = False
+        log(f"# --stream: fused kernel ineligible (dim > {MAX_DIM} or item "
+            "table beyond 64 MiB); using the per-batch streaming path "
+            "(slow). For large catalogs, in-memory training uses "
+            "item-sharded fused epochs (ops/phi_shard.py).")
+    test = _test_on(test_ds, device)
+    try:
+        with obs.trace():
+            t0 = time.perf_counter()
+            if use_fused:
+                from tpu_mf_torch.io.stream_fused import FusedStreamTrainer
+
+                trainer = FusedStreamTrainer(
+                    path, batch=max(1024, cfg.batch_size), seed=cfg.seed,
+                    device=device)
+                try:
+                    obs.n_train = trainer.n
+                    tables = trainer.pad(params)
+                    gb = float(params.gb)
+                    for it in range(start + 1, cfg.iters + 1):
+                        trainer.epoch(tables, cfg.eta_at(it), cfg.lam, gb,
+                                      epoch_idx=it)
+                        _stream_report(cfg, it, t0, trainer.trim(tables),
+                                       test, "FusedStreamTrainer", log, obs)
+                    return MFParams(*(t.contiguous()
+                                      for t in trainer.trim(tables)))
+                finally:
+                    trainer.close()
+
+            from tpu_mf_torch.io.stream import streaming_sgd_epoch
+
+            for it in range(start + 1, cfg.iters + 1):
+                params, n = streaming_sgd_epoch(
+                    params, path, cfg.eta_at(it), cfg.lam,
+                    batch_size=cfg.batch_size, fly=cfg.fly)
+                obs.n_train = n
+                _stream_report(cfg, it, t0, params, test, "stream", log, obs)
+            return params
+    finally:
+        obs.close()
+
+
+def _stream_report(cfg: TrainConfig, it: int, t0: float, params: MFParams,
+                   test: Optional[SimpleNamespace], kernel: str,
+                   log: Callable[[str], None], obs: _Observer) -> None:
+    """A streamed MF epoch's iter# line, metrics and state file."""
+    if params.theta.is_cuda:
+        torch.cuda.synchronize(params.theta.device)
+    elapsed = time.perf_counter() - t0
+    t_rmse = None
+    if test is not None:
+        t_rmse = rmse(params, test)
+        log(f"iter#{it}\t{elapsed:f}\ttRMSE={t_rmse:f}")
+    else:
+        log(f"iter#{it}\t{elapsed:f}")
+    obs.epoch_done(it, params_fn=lambda: params, alg="mf", kernel=kernel,
+                   eta=cfg.eta_at(it), elapsed=elapsed, tRMSE=t_rmse)
+
+
+class _Profile:
+    """A streamed training set's shape and counts (``scan_profile``), in
+    the form ``init_dpmf`` reads a rating set."""
+
+    def __init__(self, nu, nv, n, user_counts, item_counts):
+        self.nu, self.nv, self.n = nu, nv, n
+        self._counts = (user_counts, item_counts)
+
+    def __len__(self) -> int:
+        return self.n
+
+    def counts(self):
+        return self._counts
+
+
+def _dpmf_stream_round(run: _DpmfRun, rnd: int,
+                       state: DPMFState) -> DPMFState:
+    """One streamed DP-SGLD round (``tpu_mf``'s train_dpmf_stream loop
+    body): the SGLD pass over the file (noise from the round's
+    generator), the noise flush, the streamed train MSE for the Gibbs SSE,
+    then ``_dpmf_finish``."""
+    from tpu_mf_torch.io.stream import streaming_mse, streaming_sgld_round
+
+    cfg = run.cfg
+    eta_r = cfg.eta_at_cutoff(rnd)
+    state, _ = streaming_sgld_round(
+        state, run.path,
+        SgldHyper(eta_r, cfg.temp, run.bound, float(run.ntrain)),
+        _round_gen(run, rnd), batch_size=cfg.batch_size, fly=cfg.fly)
+    state = finish_noise(state, eta_r, cfg.temp,
+                         _round_gen(run, rnd + 500_000))
+    train_mse = streaming_mse(state.params, run.path)
+    return _dpmf_finish(run, rnd, state, eta_r, train_mse, "stream")
+
+
+def train_dpmf_stream(
+    cfg: TrainConfig,
+    path: str,
+    test_ds: Optional[RatingsCOO] = None,
+    log: Callable[[str], None] = print,
+    save_fn: Optional[Callable[[DPMFState, int], None]] = None,
+    hyper0=None,
+    device: torch.device | str = "cuda",
+) -> DPMFState:
+    """Out-of-core DP-SGLD training from an on-disk stream (reference:
+    src/dpmf.h:6-34): ``train_dpmf``'s round with every full-data pass
+    streamed, on the per-batch path on one device, as ``tpu_mf``'s. One
+    ``scan_profile`` pass gives the dims and the inverse-frequency
+    weights; ``hyper0`` (lambda_r, lambda_ub, lambda_vb, lambda_u,
+    lambda_v) is a hyper-only warm start (reference: read_hyper,
+    model.cc:153-167); ``cfg.resume`` restarts after the newest state
+    file's round."""
+    why = _unsupported(cfg)
+    if why is not None:
+        raise NotImplementedError(f"tpu_mf_torch does not port {why} yet")
+    run, state = _dpmf_stream_setup(cfg, path, test_ds, log, save_fn,
+                                    hyper0, device)
+    start, rparams, rex = run.obs.resume(run.device)
+    if rparams is not None:
+        state = _dpmf_restore(state, rparams, rex)
+        log(f"# resumed from round {start} ({run.obs.prefix})")
+    run.t0 = time.perf_counter()
+    try:
+        with run.obs.trace():
+            for rnd in range(start + 1, cfg.iters + 1):
+                state = _dpmf_stream_round(run, rnd, state)
+    finally:
+        run.obs.close()
+    return state
+
+
+def _dpmf_stream_setup(cfg: TrainConfig, path: str,
+                       test_ds: Optional[RatingsCOO], log, save_fn, hyper0,
+                       device) -> tuple[_DpmfRun, DPMFState]:
+    """The streamed rounds' shared run and initial state: one
+    ``scan_profile`` pass for the dims and the inverse-frequency weights,
+    ``init_dpmf``'s tables and precisions, and ``hyper0``'s precisions
+    where given."""
+    from tpu_mf_torch.data.streamfmt import scan_profile
+
+    device = torch.device(device)
+    nu, nv, ntrain, uc, vc, _ = scan_profile(path)
+    state = init_dpmf(_Profile(nu, nv, ntrain, uc, vc), cfg.dim, cfg.gb,
+                      torch.Generator().manual_seed(cfg.seed), device,
+                      dtype=_storage_dtype(cfg))
+    if hyper0 is not None:
+        f32 = dict(dtype=torch.float32, device=device)
+        lr, lub, lvb, lu, lv = hyper0
+        state = state._replace(
+            lambda_r=torch.tensor(float(lr), **f32),
+            lambda_ub=torch.tensor(float(lub), **f32),
+            lambda_vb=torch.tensor(float(lvb), **f32),
+            lambda_u=torch.as_tensor(np.asarray(lu)).to(**f32),
+            lambda_v=torch.as_tensor(np.asarray(lv)).to(**f32))
+    run = _DpmfRun(cfg=cfg, train_ds=None, train=None,
+                   test=_test_on(test_ds, device),
+                   bound=dp_bound(cfg.epsilon, cfg.tau, nv), runner=None,
+                   log=log, obs=_Observer(cfg, ntrain, log), save_fn=save_fn,
+                   device=device, t0=time.perf_counter(), ntrain=ntrain,
+                   path=path)
+    return run, state
+
+
+def _admf_stream_samples(cfg: TrainConfig, it: int, dev):
+    """Epoch ``it``'s validation-sample generator, keyed as the batched
+    path keys it."""
+    return torch.Generator(device=dev).manual_seed(
+        _admf_key(cfg, it) & 0x7FFF_FFFF_FFFF_FFFF)
+
+
+def train_admf_stream(
+    cfg: TrainConfig,
+    path: str,
+    valid_ds: RatingsCOO,
+    test_ds: Optional[RatingsCOO] = None,
+    log: Callable[[str], None] = print,
+    device: torch.device | str = "cuda",
+) -> AdaptRegState:
+    """Out-of-core AdaptReg training from an on-disk stream (reference:
+    src/admf.h:6-46), on the per-batch path on one device, as
+    ``tpu_mf``'s; the validation set stays in memory (it is small). Each
+    epoch's K validation indices per batch come from
+    ``_admf_stream_samples``; ``cfg.resume`` restarts after the newest
+    state file's round, shadows copied from its tables."""
+    from tpu_mf_torch.data.streamfmt import scan_stats
+    from tpu_mf_torch.io.stream import streaming_adreg_epoch
+
+    why = _unsupported(cfg)
+    if why is not None:
+        raise NotImplementedError(f"tpu_mf_torch does not port {why} yet")
+    device = torch.device(device)
+    nu, nv, ntrain = scan_stats(path)
+    state = init_admf(nu, nv, cfg.dim, cfg.lam, cfg.gb,
+                      torch.Generator().manual_seed(cfg.seed), device,
+                      dtype=_storage_dtype(cfg))
+    obs = _Observer(cfg, ntrain, log)
+    start, rparams, rex = obs.resume(device)
+    if rparams is not None:
+        state = with_shadows(rparams, [rex[k] for k in LAMBDAS])
+        log(f"# resumed from round {start} ({obs.prefix})")
+    valid = (torch.as_tensor(valid_ds.u.astype(np.int64)).to(device),
+             torch.as_tensor(valid_ds.v.astype(np.int64)).to(device),
+             torch.as_tensor(valid_ds.r).to(device, torch.float32))
+    test = _test_on(test_ds, device)
+    t0 = time.perf_counter()
+    try:
+        with obs.trace():
+            for it in range(start + 1, cfg.iters + 1):
+                state, _ = streaming_adreg_epoch(
+                    state, path, valid,
+                    AdRegHyper(cfg.eta_at(it), cfg.eta_reg_at(it), cfg.loss),
+                    _admf_stream_samples(cfg, it, device),
+                    batch_size=cfg.batch_size, fly=cfg.fly)
+                if device.type == "cuda":
+                    torch.cuda.synchronize(device)
+                _admf_report(cfg, it, t0, state.params, test,
+                             [getattr(state, k) for k in LAMBDAS], "stream",
+                             log, obs)
+            return state
     finally:
         obs.close()
