@@ -2582,13 +2582,26 @@ def keep_trainers():
         cls.__init__, cls._launch = init, launch
 
 
-def shard_times(entries):
-    """(plan s, upload ms, kernel ms) summed over ``shard_log`` entries."""
-    return (sum(e["plan_s"] for e in entries),
-            sum(e["upload"][0].elapsed_time(e["upload"][1])
-                for e in entries),
-            sum(e["kernel"][0].elapsed_time(e["kernel"][1])
-                for e in entries))
+def spans_named(recs, name, **attrs):
+    """The span records of ``name`` whose attributes hold ``attrs``."""
+    return [r for r in recs if r["name"] == name
+            and all(r["attrs"].get(k) == v for k, v in attrs.items())]
+
+
+def span_s(rec):
+    """A span record's host seconds."""
+    return (rec["t1"] - rec["t0"]) * 1e-9
+
+
+def shard_times(recs):
+    """(plan s, upload ms, kernel ms) summed over a streamed run's span
+    records: the shards' ``tmf.plan_build`` spans (host seconds, on the
+    worker thread), ``tmf.plan_upload`` and ``tmf.sub_epoch`` (CUDA
+    events)."""
+    return (sum(map(span_s, spans_named(recs, "tmf.plan_build"))),
+            sum(r["device_ms"] for r in spans_named(recs,
+                                                    "tmf.plan_upload")),
+            sum(r["device_ms"] for r in spans_named(recs, "tmf.sub_epoch")))
 
 
 def phase_stream(torch, tc, train, test, gen1_rm):
@@ -2607,6 +2620,7 @@ def phase_stream(torch, tc, train, test, gen1_rm):
     the rows its plan touches), its error and the shard count."""
     from tpu_mf_torch.io.stream_fused import FusedStreamTrainer
     from tpu_mf_torch.models.mf import init_mf
+    from tpu_mf_torch.train.metrics import recording
 
     paths = raw_standin(train, test, 26)
     gb = train.mean_rating()
@@ -2619,7 +2633,7 @@ def phase_stream(torch, tc, train, test, gen1_rm):
     torch.cuda.reset_peak_memory_stats()
     counts = stream_counts()
     t = time.perf_counter()
-    with keep_trainers() as kept:
+    with keep_trainers() as kept, recording() as recs:
         lines = run_cli(args)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t
@@ -2628,7 +2642,7 @@ def phase_stream(torch, tc, train, test, gen1_rm):
     (r,) = kept
     k = r.store.n_shards
     if not (launches == FusedStreamTrainer.launches == EPOCHS * k
-            and len(r.shard_log) == EPOCHS * k):
+            and len(spans_named(recs, "tmf.sub_epoch")) == EPOCHS * k):
         raise AssertionError(f"cell_sgd launches {launches}, trainer "
                              f"{FusedStreamTrainer.launches}, want "
                              f"{EPOCHS} x {k}")
@@ -2645,11 +2659,12 @@ def phase_stream(torch, tc, train, test, gen1_rm):
         f"tiles, built in {r.store_s:.1f} s (scan and scatter: two text "
         f"passes); tiles {r.tile_u}x{r.tile_v}, batch {r.batch}")
     for it in range(1, EPOCHS + 1):
-        es = [e for e in r.shard_log if e["epoch"] == it]
+        es = [e for e in recs if e["attrs"].get("epoch") == it]
         plan_s, up, ker = shard_times(es)
-        log(f"# phase 26: epoch {it}: plan {'cache load' if es[0]['cached'] else 'build'} "
+        cached = spans_named(es, "tmf.plan_build")[0]["attrs"]["cached"]
+        log(f"# phase 26: epoch {it}: plan {'cache load' if cached else 'build'} "
             f"{plan_s:.2f} s, upload {up:.1f} ms, kernel {ker:.3f} ms "
-            f"({[e['kernel'][0].elapsed_time(e['kernel'][1]) for e in es]}"
+            f"({[e['device_ms'] for e in spans_named(es, 'tmf.sub_epoch')]}"
             f" a shard), wall {ends[it - 1] - (ends[it - 2] if it > 1 else 0):.2f}"
             f" s{' (the ShardStore included)' if it == 1 else ''}, tRMSE "
             f"{rm[it - 1]:.6f}, "
@@ -2677,7 +2692,7 @@ def phase_stream(torch, tc, train, test, gen1_rm):
         torch.cuda.synchronize()
         times[which].append(a.elapsed_time(b))
         out.setdefault(which, r.trim(tabs))
-    n0 = int(r.shard_log[0]["n_real"])
+    n0 = int(spans_named(recs, "tmf.sub_epoch")[0]["attrs"]["n_real"])
     for what, ts in times.items():
         log(f"# phase 26: epoch 1, shard 0 {what}: ms "
             f"{[round(x, 3) for x in ts]}, rating updates/s "
@@ -2700,6 +2715,7 @@ def phase_stream_shards(torch, tc, train, test):
     much the Prefetcher overlaps; one launch per shard, finite tables."""
     from tpu_mf_torch.io.stream_fused import FusedStreamTrainer
     from tpu_mf_torch.models.mf import init_mf
+    from tpu_mf_torch.train.metrics import recording
 
     paths = raw_standin(train, test, 27)
     gb = train.mean_rating()
@@ -2713,8 +2729,9 @@ def phase_stream_shards(torch, tc, train, test):
         before = tc.cell_epoch.launches
         torch.cuda.synchronize()
         t = time.perf_counter()
-        r.epoch(tabs, 2e-2, 5e-3, gb, epoch_idx=1)
-        torch.cuda.synchronize()
+        with recording() as recs:
+            r.epoch(tabs, 2e-2, 5e-3, gb, epoch_idx=1)
+            torch.cuda.synchronize()
         wall = time.perf_counter() - t
         k = r.store.n_shards
         if tc.cell_epoch.launches != before + k or k != STREAM_SHARDS:
@@ -2722,11 +2739,13 @@ def phase_stream_shards(torch, tc, train, test):
                                  f"{tc.cell_epoch.launches - before} launches")
         if not all(bool(torch.isfinite(x).all()) for x in tabs):
             raise AssertionError("non-finite tables after the epoch")
-        plan_s, up, ker = shard_times(r.shard_log)
+        plan_s, up, ker = shard_times(recs)
+        subs = spans_named(recs, "tmf.sub_epoch")
+        builds = spans_named(recs, "tmf.plan_build")
         log(f"# phase 27: {k} shards of {r.store.tiles_per_shard} user "
-            f"tiles ({[e['n_real'] for e in r.shard_log]} ratings), "
+            f"tiles ({[e['attrs']['n_real'] for e in subs]} ratings), "
             f"ShardStore {store_s:.1f} s; one epoch {wall:.2f} s wall: plan "
-            f"builds {plan_s:.2f} s ({[round(e['plan_s'], 2) for e in r.shard_log]}), "
+            f"builds {plan_s:.2f} s ({[round(span_s(e), 2) for e in builds]}), "
             f"uploads {up:.1f} ms, kernels {ker:.1f} ms; the epoch's wall "
             f"beyond the plan builds {wall - plan_s:.2f} s")
     finally:

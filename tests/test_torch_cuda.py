@@ -25,6 +25,7 @@ from tpu_mf_torch.ops import sgd_packed as tpk
 from tpu_mf_torch.ops import sgd_slot as tsl
 from tpu_mf_torch.ops.phi_shard import PhiShardedRunner
 from tpu_mf_torch.train import train_mf
+from tpu_mf_torch.train.metrics import recording
 
 
 def np_tables(nu, nv, dim, seed, gb):
@@ -204,6 +205,38 @@ def test_train_mf_no_dense_runs_gen1(cuda):
     assert td.dense_epoch.launches == dense_before
     rm = [float(x.split("tRMSE=")[1]) for x in log if "tRMSE=" in x]
     assert np.all(np.isfinite(rm)) and rm[-1] < rm[0], rm
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("use_dense,kernel", [(True, "DenseEpochRunner"),
+                                              (False, "CellEpochRunner")])
+def test_train_mf_spans_time_the_epochs_on_the_card(cuda, use_dense,
+                                                     kernel):
+    """With the recorder on, train_mf on a CUDA device records each epoch
+    as a tmf.epoch span with CUDA event milliseconds inside its host span,
+    one kernel launch counted on it (and on gen-1 its grouping), and the
+    uploads in the first pad."""
+    ds = synthetic_ratings(600, 400, 30000, rank=3, noise=0.2, seed=1)
+    tr, te = ds.split(0.1, seed=2)
+    cfg = TrainConfig(dim=64, iters=3, eta=0.005, use_dense=use_dense,
+                      gb=tr.mean_rating())
+    with recording() as recs:
+        train_mf(cfg, tr, te, log=lambda _: None, device=cuda)
+    epochs = sorted((r for r in recs if r["name"] == "tmf.epoch"),
+                    key=lambda r: r["t0"])
+    assert [r["attrs"]["epoch"] for r in epochs] == [1, 2, 3]
+    for r in epochs:
+        assert r["attrs"]["kernel"] == kernel
+        assert r["attrs"]["launches"] == 1
+        assert 0 < r["device_ms"] <= (r["t1"] - r["t0"]) / 1e6 + 0.05
+        if not use_dense:
+            assert sum(v for k, v in r["attrs"].items()
+                       if k.startswith("groups_")) == 1
+    (pad,) = [r for r in recs if r["name"] == "tmf.pad"]
+    ups = [r for r in recs if r["name"] == "tmf.plan_upload"]
+    assert len(ups) == 1 and ups[0]["parent"] == pad["id"]
+    assert [r["name"] for r in recs if r["parent"] is None] == [
+        "tmf.plan_build", "tmf.run"]
 
 
 @pytest.mark.cuda
@@ -993,16 +1026,19 @@ def test_fused_stream_trainer_on_gpu_matches_cpu(cuda, tmp_path, mxu, atol):
     tg = gpu.pad(params_from_numpy(*tabs, device=cuda))
     tcpu = cpu.pad(params_from_numpy(*tabs, device="cpu"))
     before, runs = tc.cell_epoch.launches, FusedStreamTrainer.launches
-    for it in (1, 2):
-        gpu.epoch(tg, 0.02 / it, 0.01, float(tabs[4]), epoch_idx=it)
-        cpu.epoch(tcpu, 0.02 / it, 0.01, float(tabs[4]), epoch_idx=it)
+    with recording() as recs:
+        for it in (1, 2):
+            gpu.epoch(tg, 0.02 / it, 0.01, float(tabs[4]), epoch_idx=it)
+            cpu.epoch(tcpu, 0.02 / it, 0.01, float(tabs[4]), epoch_idx=it)
     torch.cuda.synchronize()
     assert tc.cell_epoch.launches == before + 2 * gpu.store.n_shards
     assert FusedStreamTrainer.launches == runs + 2 * gpu.store.n_shards
     for a, b in zip(gpu.trim(tg)[:4], cpu.trim(tcpu)[:4]):
         assert float((a.cpu() - b).abs().max()) <= atol
-    assert all(e["kernel"][0].elapsed_time(e["kernel"][1]) >= 0
-               for e in gpu.shard_log)
+    gpu_subs = [r for r in recs if r["name"] == "tmf.sub_epoch"
+                and r["device_ms"] is not None]
+    assert len(gpu_subs) == 2 * gpu.store.n_shards
+    assert all(r["device_ms"] >= 0 for r in gpu_subs)
     gpu.close()
     cpu.close()
 

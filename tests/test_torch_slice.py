@@ -331,10 +331,14 @@ def test_cli_checkpoint_is_reference_binary(tmp_path, capsys):
 
 def test_cli_metrics_and_trace(tmp_path):
     """--metrics appends one JSON line per epoch; --trace writes a
-    torch.profiler trace."""
+    torch.profiler trace, turns the span recorder on and writes its
+    records to spans.jsonl beside the trace (every epoch's tmf.epoch and
+    tmf.eval in the loop's tmf.run, each as a range of the trace too), and
+    each metrics line carries its epoch's span ms."""
     import json
 
     from tpu_mf_torch.cli import main
+    from tpu_mf_torch.train import metrics as tm
 
     metrics, trace = tmp_path / "m.jsonl", tmp_path / "trace"
     assert main(write_data(tmp_path) + [
@@ -344,6 +348,51 @@ def test_cli_metrics_and_trace(tmp_path):
     assert [r["round"] for r in rows] == [1, 2]
     assert all(r["updates_per_sec"] > 0 and r["tRMSE"] > 0 for r in rows)
     assert (trace / "trace.json").stat().st_size > 0
+    assert not tm.enabled() and tm.drain() == []
+    spans = [json.loads(x)
+             for x in (trace / "spans.jsonl").read_text().splitlines()]
+    names = [r["name"] for r in sorted(spans, key=lambda r: r["t0"])]
+    assert names == ["tmf.run", "tmf.pad"] + [
+        "tmf.epoch", "tmf.eval", "tmf.trim"] * 2 + ["tmf.trim"]
+    (run,) = [r for r in spans if r["name"] == "tmf.run"]
+    assert all(r["run"] == run["id"] for r in spans)
+    epochs = [r for r in spans if r["name"] == "tmf.epoch"]
+    evals = [r for r in spans if r["name"] == "tmf.eval"]
+    for row, ep, ev in zip(rows, epochs, evals):
+        assert ep["attrs"]["epoch"] == row["round"]
+        assert row["epoch_ms"] == (ep["t1"] - ep["t0"]) / 1e6 > 0
+        assert row["eval_ms"] == (ev["t1"] - ev["t0"]) / 1e6 > 0
+        assert "epoch_device_ms" not in row  # no CUDA events on the CPU
+    text = (trace / "trace.json").read_text()
+    assert all(f'"name": "{n}"' in text for n in set(names))
+
+
+def test_cli_metrics_rate_counts_from_the_loop_start(tmp_path, monkeypatch):
+    """A metrics line's updates_per_sec is the updates so far over the
+    epoch loop's elapsed seconds (the clock of the iter# lines): a second
+    spent building the schedule before the loop is not counted."""
+    import json
+    import time
+
+    from tpu_mf_torch.cli import main
+    from tpu_mf_torch.train import loop
+
+    init = loop.BatchedRunner.__init__
+
+    def slow_init(self, *a, **k):
+        time.sleep(1.0)
+        init(self, *a, **k)
+
+    monkeypatch.setattr(loop.BatchedRunner, "__init__", slow_init)
+    metrics = tmp_path / "m.jsonl"
+    assert main(write_data(tmp_path) + [
+        "--device", "cpu", "--metrics", str(metrics)]) == 0
+    rows = [json.loads(x) for x in metrics.read_text().splitlines()]
+    n = len(data()[0])
+    assert [r["round"] for r in rows] == [1, 2]
+    for k, r in enumerate(rows, 1):
+        assert r["t"] - r["elapsed"] >= 1.0  # the logger opened before
+        assert r["updates_per_sec"] == round(k * n / r["elapsed"])
 
 
 def test_port_runs_without_jax(tmp_path):

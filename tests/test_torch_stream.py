@@ -38,6 +38,7 @@ from tpu_mf_torch.models.mf import params_from_numpy, params_to_numpy
 from tpu_mf_torch.ops.adreg import AdRegHyper
 from tpu_mf_torch.ops.sgld import SgldHyper
 from tpu_mf_torch.train import loop as tloop
+from tpu_mf_torch.train.metrics import recording
 
 torch.set_num_threads(1)
 TILE, BATCH, MEM = 32, 128, 3000
@@ -121,7 +122,7 @@ def test_shard_plans_bit_equal(stream_file, tmp_path, plan_cache, epoch):
     assert [s for s, *_ in plans] == list(range(jt.store.n_shards))
     v = epoch % plan_cache if plan_cache else epoch
     sentinel = TILE * UV_BASE + TILE
-    for s, plan, _, cached in plans:
+    for s, plan, cached in plans:
         assert not cached
         gu, gv, uv, r = jt._build_plan(
             s, seed_load=3 + 7919 * v + 104729 * s,
@@ -151,7 +152,7 @@ def test_plan_cache_reused_and_rejected_when_stale(stream_file, tmp_path):
     first = list(t1._plans(0))
     again = list(t1._plans(2))  # variant 0 again
     assert not any(c for *_, c in first) and all(c for *_, c in again)
-    for (_, a, _, _), (_, b, _, _) in zip(first, again):
+    for (_, a, _), (_, b, _) in zip(first, again):
         for k in ("u", "v", "r", "w", "gu", "gv"):
             np.testing.assert_array_equal(getattr(a, k), getattr(b, k))
         assert a.n_real == b.n_real
@@ -162,7 +163,7 @@ def test_plan_cache_reused_and_rejected_when_stale(stream_file, tmp_path):
     other = list(t2._plans(0))
     assert not any(c for *_, c in other)
     assert any(not np.array_equal(a.u, b.u)
-               for (_, a, _, _), (_, b, _, _) in zip(first, other))
+               for (_, a, _), (_, b, _) in zip(first, other))
 
 
 @pytest.mark.parametrize("mxu,atol", [("float32", 2e-5), ("bfloat16", 1e-4)])
@@ -177,13 +178,15 @@ def test_fused_stream_epochs_match_tpu_mf(stream_file, tmp_path, mxu, atol):
     jtab = jt.pad(jax_params(tabs))
     ttab = tt.pad(params_from_numpy(*tabs, device="cpu"))
     gb = float(tabs[4])
-    for it in (1, 2):
-        jtab = jt.epoch(jtab, 0.02 / it, 0.01, gb, epoch_idx=it)
-        tt.epoch(ttab, 0.02 / it, 0.01, gb, epoch_idx=it)
+    with recording() as recs:
+        for it in (1, 2):
+            jtab = jt.epoch(jtab, 0.02 / it, 0.01, gb, epoch_idx=it)
+            tt.epoch(ttab, 0.02 / it, 0.01, gb, epoch_idx=it)
     got, want = params_to_numpy(tt.trim(ttab)), jt.trim(jtab)
     held(got[:4], want[:4], atol, mxu)
     assert np.abs(got[0] - tabs[0]).max() > 1e-3  # it trained
-    assert [e["epoch"] for e in tt.shard_log] == (
+    assert [r["attrs"]["epoch"] for r in recs
+            if r["name"] == "tmf.sub_epoch"] == (
         [1] * tt.store.n_shards + [2] * tt.store.n_shards)
     assert tsf.FusedStreamTrainer.launches == 0  # CPU: no kernel launch
     tt.close()

@@ -27,7 +27,6 @@ from __future__ import annotations
 
 import os
 import tempfile
-import time
 from typing import Iterator, Optional
 
 import numpy as np
@@ -43,6 +42,7 @@ from tpu_mf_torch.ops.sgd_cells import (
     prepare_cells,
     upload_plan,
 )
+from tpu_mf_torch.train.metrics import note, span
 
 REC = np.dtype([("u", "<i4"), ("v", "<i4"), ("r", "<f4")])
 
@@ -73,13 +73,13 @@ class ShardStore:
             os.path.join(self.workdir, f"shard.{s:04d}.rec")
             for s in range(self.n_shards)
         ]
-        span = tile_u * self.tiles_per_shard
+        shard_users = tile_u * self.tiles_per_shard
         files = [open(p, "wb") for p in self.paths]
         try:
             for u, v, r in iter_ratings(path, chunk=min(1 << 18, mem_limit)):
                 rec = np.empty(len(u), REC)
                 rec["u"], rec["v"], rec["r"] = u, v, r
-                dest = u // span
+                dest = u // shard_users
                 for s in np.unique(dest):
                     rec[dest == s].tofile(files[s])
         finally:
@@ -119,10 +119,11 @@ class FusedStreamTrainer:
     0 rebuilds every epoch with a fresh shuffle. ``mxu`` names the working
     type ("bfloat16", or "float32" for parity runs).
 
-    ``shard_log`` gets one entry per launch: the epoch, the shard, its
-    real ratings, the seconds its plan took to build or load (on the
-    worker thread) and whether it came from the cache, and on CUDA the
-    events around its upload (side stream) and its kernel."""
+    With the span recorder on (``train/metrics.py``), each shard's plan
+    build or cache load is a ``tmf.plan_build`` span on the worker thread
+    (attributes shard, epoch, cached), its upload a ``tmf.plan_upload``
+    span on the side stream (shard, epoch; CUDA events), and its launch a
+    ``tmf.sub_epoch`` span (shard, epoch, n_real; CUDA events)."""
 
     launches = 0  # kernel launches made by the trainers
 
@@ -153,7 +154,6 @@ class FusedStreamTrainer:
         self.n_gv = cdiv(self.nv, tile_v)
         self.plan_cache = plan_cache
         self.device = torch.device(device)
-        self.shard_log: list = []
         self.dim = None
         self.gb = 0.0
 
@@ -183,63 +183,66 @@ class FusedStreamTrainer:
                         n_gu=self.n_gu, n_gv=self.n_gv, n_real=n_real)
 
     def _plans(self, epoch_idx: int) -> Iterator[tuple]:
-        """(shard, host plan, plan seconds, from the cache) of each
-        non-empty shard of the epoch, in shard order."""
-        fp = self._fingerprint()
+        """(shard, host plan, from the cache) of each non-empty shard of
+        the epoch, in shard order, each built or loaded in a
+        ``tmf.plan_build`` span."""
         for s in range(self.store.n_shards):
-            t = time.perf_counter()
-            cached = False
-            if self.plan_cache > 0:
-                variant = epoch_idx % self.plan_cache
-                cpath = os.path.join(
-                    self.store.workdir, f"tplan.{s:04d}.{variant}.npz"
-                )
-                plan = None
-                if os.path.exists(cpath):
-                    with np.load(cpath) as z:
-                        if "fp" in z and np.array_equal(z["fp"], fp):
-                            n_real = int(z["n_real"])
-                            plan = (self._from_cache(z, n_real) if n_real
-                                    else None)
-                            cached = True
-                if not cached:
-                    plan = self._build_plan(
-                        s,
-                        seed_load=self.seed + 7919 * variant + 104729 * s,
-                        seed_plan=self.seed ^ (variant * 65537 + s),
-                    )
-                    arrs = {k: (getattr(plan, k) if plan is not None
-                                else np.empty(0)) for k in _CACHED}
-                    tmp = f"{cpath}.{os.getpid()}.tmp.npz"
-                    np.savez(tmp, fp=fp, n_real=np.int64(
-                        plan.n_real if plan is not None else 0), **arrs)
-                    os.replace(tmp, cpath)
-            else:
+            with span("tmf.plan_build", shard=s, epoch=epoch_idx):
+                plan, cached = self._plan(s, epoch_idx)
+                note("cached", cached)
+            if plan is not None:
+                yield s, plan, cached
+
+    def _plan(self, s: int, epoch_idx: int) -> tuple:
+        """(shard ``s``'s host plan for the epoch or None where it has no
+        ratings, whether it came from the cache)."""
+        fp = self._fingerprint()
+        cached = False
+        if self.plan_cache > 0:
+            variant = epoch_idx % self.plan_cache
+            cpath = os.path.join(
+                self.store.workdir, f"tplan.{s:04d}.{variant}.npz"
+            )
+            plan = None
+            if os.path.exists(cpath):
+                with np.load(cpath) as z:
+                    if "fp" in z and np.array_equal(z["fp"], fp):
+                        n_real = int(z["n_real"])
+                        plan = (self._from_cache(z, n_real) if n_real
+                                else None)
+                        cached = True
+            if not cached:
                 plan = self._build_plan(
                     s,
-                    seed_load=self.seed + 7919 * epoch_idx + 104729 * s,
-                    seed_plan=self.seed ^ (epoch_idx * 65537 + s),
+                    seed_load=self.seed + 7919 * variant + 104729 * s,
+                    seed_plan=self.seed ^ (variant * 65537 + s),
                 )
-            if plan is not None:
-                yield s, plan, time.perf_counter() - t, cached
+                arrs = {k: (getattr(plan, k) if plan is not None
+                            else np.empty(0)) for k in _CACHED}
+                tmp = f"{cpath}.{os.getpid()}.tmp.npz"
+                np.savez(tmp, fp=fp, n_real=np.int64(
+                    plan.n_real if plan is not None else 0), **arrs)
+                os.replace(tmp, cpath)
+        else:
+            plan = self._build_plan(
+                s,
+                seed_load=self.seed + 7919 * epoch_idx + 104729 * s,
+                seed_plan=self.seed ^ (epoch_idx * 65537 + s),
+            )
+        return plan, cached
 
-    def _stage(self, item):
-        """The device form of one shard plan (on the Prefetcher's side
-        stream), with CUDA events around its upload."""
+    def _stage(self, item, epoch_idx: int):
+        """The device form of one shard plan of epoch ``epoch_idx``,
+        uploaded in a ``tmf.plan_upload`` span (on the Prefetcher's side
+        stream), and the shard's (shard, real ratings)."""
         from tpu_mf_torch.io.stream import to_device
 
-        s, plan, plan_s, cached = item
-        info = dict(shard=s, n_real=int(plan.n_real), plan_s=plan_s,
-                    cached=cached, upload=None)
-        if self.device.type == "cuda":
-            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
-            ev[0].record()
-        dplan = upload_plan(plan, self.device,
-                            put=lambda a: to_device(a, self.device))
-        if self.device.type == "cuda":
-            ev[1].record()
-            info["upload"] = tuple(ev)
-        return dplan, info
+        s, plan, _ = item
+        with span("tmf.plan_upload", self.device.type == "cuda", shard=s,
+                  epoch=epoch_idx):
+            dplan = upload_plan(plan, self.device,
+                                put=lambda a: to_device(a, self.device))
+        return dplan, (s, int(plan.n_real))
 
     def pad(self, params: MFParams):
         """Fused (theta_ext, phi_ext) float32 tables of ``params`` on the
@@ -262,26 +265,20 @@ class FusedStreamTrainer:
               epoch_idx: int = 0, fly: int = 2):
         """One out-of-core pass, in place on the fused tables: shards stream
         through the kernel while the next shard's plan builds on a
-        background thread. Returns the tables."""
+        background thread, each launch in a ``tmf.sub_epoch`` span. Returns
+        the tables."""
         from tpu_mf_torch.io.stream import Prefetcher
 
         cuda = self.device.type == "cuda"
         pf = Prefetcher(self._plans(epoch_idx), fly=fly, device=self.device,
-                        stage=self._stage)
+                        stage=lambda item: self._stage(item, epoch_idx))
         try:
-            for plan, info in pf:
-                if cuda:
-                    ev = [torch.cuda.Event(enable_timing=True)
-                          for _ in range(2)]
-                    ev[0].record()
-                launched = cell_epoch.launches
-                self._launch(tables, plan, eta, lam, gb)
-                type(self).launches += cell_epoch.launches - launched
-                if cuda:
-                    ev[1].record()
-                info.update(epoch=epoch_idx,
-                            kernel=tuple(ev) if cuda else None)
-                self.shard_log.append(info)
+            for plan, (s, n_real) in pf:
+                with span("tmf.sub_epoch", cuda, shard=s, epoch=epoch_idx,
+                          n_real=n_real):
+                    launched = cell_epoch.launches
+                    self._launch(tables, plan, eta, lam, gb)
+                    type(self).launches += cell_epoch.launches - launched
         finally:
             pf.close()
         return tables

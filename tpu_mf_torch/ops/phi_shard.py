@@ -43,6 +43,7 @@ from tpu_mf_torch.ops.sgd_cells import (
     _tile_balance_map,
     cell_epoch,
 )
+from tpu_mf_torch.train.metrics import span
 
 # Bytes of one shard's fused item rows (tpu_mf's VMEM budget).
 PHI_SHARD_BUDGET = 36 * 1024 * 1024
@@ -165,11 +166,15 @@ class PhiShardedRunner:
 
     def epoch(self, tables, eta: float, lam: float, gb: float,
               epoch_idx: int = 0):
-        """The K sub-epochs in shard order, in place; returns the tables."""
+        """The K sub-epochs in shard order, in place, each in a
+        ``tmf.sub_epoch`` span; returns the tables."""
         theta, phis = tables
+        cuda = theta.device.type == "cuda"
         launched = cell_epoch.launches
-        for inner, phi_k in zip(self.inners, phis):
-            inner.epoch((theta, phi_k), eta, lam, gb, epoch_idx=epoch_idx)
+        for k, (inner, phi_k) in enumerate(zip(self.inners, phis)):
+            with span("tmf.sub_epoch", cuda, shard=k):
+                inner.epoch((theta, phi_k), eta, lam, gb,
+                            epoch_idx=epoch_idx)
         PhiShardedRunner.launches += cell_epoch.launches - launched
         return tables
 

@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from tpu_mf_torch.models.mf import MFParams
+from tpu_mf_torch.train.metrics import count
 
 LANES = 128
 MAX_DIM = 2048
@@ -42,11 +43,15 @@ def fuse_rows(fac: torch.Tensor, bias: torch.Tensor, rows: int, lanes: int,
     """(rows, lanes) float32 fused table; side "u" is [fac | bias | 1],
     side "v" is [fac | 1 | bias]. With ``idmap``, row i goes to table row
     ``idmap[i]``. Tables of another dtype (bf16 storage) are widened to
-    float32, as ``tpu_mf`` fuses them."""
+    float32, as ``tpu_mf`` fuses them. The map's bytes sent to the
+    table's device count as ``h2d_bytes`` on the innermost span."""
     n, dim = fac.shape
     out = torch.zeros(rows, lanes, dtype=torch.float32, device=fac.device)
-    at = (slice(0, n) if idmap is None
-          else torch.as_tensor(idmap, dtype=torch.int64).to(fac.device))
+    if idmap is None:
+        at = slice(0, n)
+    else:
+        at = torch.as_tensor(idmap, dtype=torch.int64).to(fac.device)
+        count("h2d_bytes", 8 * idmap.size)
     b_lane, one_lane = (dim, dim + 1) if side == "u" else (dim + 1, dim)
     out[at, :dim] = fac.to(torch.float32)
     out[at, b_lane] = bias.to(torch.float32)
@@ -68,10 +73,12 @@ def split_params(theta_ext: torch.Tensor, phi_ext: torch.Tensor, nu: int,
                  nv: int, dim: int, gb, map_u: np.ndarray | None = None,
                  map_v: np.ndarray | None = None) -> MFParams:
     """MFParams of fused tables (inverse of ``pad_params``): views without
-    maps, gathered copies with them."""
+    maps, gathered copies with them (the maps' bytes sent to the tables'
+    device count as ``h2d_bytes`` on the innermost span)."""
     def rows(ext, idmap):
         if idmap is None:
             return ext
+        count("h2d_bytes", 8 * idmap.size)
         return ext[torch.as_tensor(idmap, dtype=torch.int64).to(ext.device)]
 
     th, ph = rows(theta_ext, map_u), rows(phi_ext, map_v)

@@ -51,8 +51,11 @@ from tpu_mf_torch.ops.rows import (
     row_lanes,
     split_params,
 )
+from tpu_mf_torch.train.metrics import count, span
 
 GROUPS = (1, 2, 4, 8)
+# the counter of each (theta, phi) grouping, made once
+GROUP_KEYS = {t: {p: f"groups_{t}x{p}" for p in GROUPS} for t in GROUPS}
 
 
 class CellPlan(NamedTuple):
@@ -498,6 +501,7 @@ def cell_epoch(theta: torch.Tensor, phi: torch.Tensor, plan: DevicePlan,
     if rc != 0:
         raise RuntimeError(f"cell_sgd kernel launch failed: CUDA error {rc}")
     cell_epoch.launches += 1
+    count("launches")
 
 
 cell_epoch.launches = 0  # kernel launches (CUDA calls), not CPU runs
@@ -572,8 +576,9 @@ class WindowRunner:
         """Upload the plans, as window-plan columns, to the runner's device
         (once)."""
         if not self._dev:
-            self._dev = [upload_plan(self._window_plan(p), self.device)
-                         for p in self.plans]
+            with span("tmf.plan_upload"):
+                self._dev = [upload_plan(self._window_plan(p), self.device)
+                             for p in self.plans]
         return self
 
     def _warn(self, side: str, eta: float, dups: int) -> None:
@@ -600,14 +605,17 @@ class WindowRunner:
 
     def epoch(self, tables, eta: float, lam: float, gb: float,
               epoch_idx: int = 0):
-        """One epoch, in place on the fused tables; returns them."""
+        """One epoch, in place on the fused tables; returns them. The
+        grouping it took counts as ``groups_<theta>x<phi>`` on the
+        innermost span."""
         cap = max(1.0, 0.2 / max(eta, 1e-9))
         plan = self.materialize()._dev[epoch_idx % len(self._dev)]
         launched = cell_epoch.launches
+        tg, pg = self.pick_theta_groups(eta), self.pick_phi_groups(eta)
         cell_epoch(tables[0], tables[1], plan, eta, lam, gb, cap, self.dim,
-                   self.pick_theta_groups(eta), self.pick_phi_groups(eta),
-                   self.work_dtype, self.saturate, self.mxu_pred)
+                   tg, pg, self.work_dtype, self.saturate, self.mxu_pred)
         type(self).launches += cell_epoch.launches - launched
+        count(GROUP_KEYS[tg][pg])
         return tables
 
     def bind(self, dim: int, gb: float) -> None:

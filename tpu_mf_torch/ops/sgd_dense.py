@@ -39,6 +39,7 @@ from tpu_mf_torch.data.coo import RatingsCOO
 from tpu_mf_torch.models.mf import MFParams
 from tpu_mf_torch.ops import _build
 from tpu_mf_torch.ops.rows import cdiv, pad_params, row_lanes, split_params
+from tpu_mf_torch.train.metrics import count, span
 
 # device memory the dense matrices may take (the same budget as tpu_mf)
 DENSE_BUDGET = 8 * 1024 ** 3
@@ -417,6 +418,7 @@ def dense_epoch(theta: torch.Tensor, phi: torch.Tensor, cells: DenseCells,
         raise ValueError(f"dense_epoch: no walk {walk!r}")
     dense_epoch.launches += 1
     dense_epoch.walks[route] += 1
+    count("launches")
 
 
 def _walk_epoch(theta, phi, cells, eta, lam, gb, cap, dim, saturate):
@@ -516,7 +518,8 @@ class DenseEpochRunner:
     def materialize(self) -> "DenseEpochRunner":
         """Build the cell matrices on the runner's device (once)."""
         if self._cells is None:
-            self._cells = densify(self.plan, self.work_dtype, self.device)
+            with span("tmf.plan_upload"):
+                self._cells = densify(self.plan, self.work_dtype, self.device)
         return self
 
     @property

@@ -56,7 +56,16 @@ from tpu_mf_torch.ops.gibbs import sample_hyper
 from tpu_mf_torch.ops.rows import MAX_DIM
 from tpu_mf_torch.ops.sgd import sgd_epoch
 from tpu_mf_torch.ops.sgld import SgldHyper, finish_noise, sgld_epoch
-from tpu_mf_torch.train.metrics import MetricsLogger, profile_trace
+from tpu_mf_torch.train.metrics import (
+    COUNTS,
+    MetricsLogger,
+    drain,
+    profile_trace,
+    span,
+    spans_path,
+    subtree,
+    write_spans,
+)
 
 
 class _Observer:
@@ -107,6 +116,8 @@ class _Observer:
                     "overshoots (bias terms first). Reduce --eta, "
                     "raise --gam (faster decay), or shrink --batch."
                 )
+        if self.cfg.trace:
+            fields.update(self._spans())
         if self.ml is not None:
             self.ml.count_updates(self.n_train)
             self.ml.log(round=rnd, **fields)
@@ -116,6 +127,30 @@ class _Observer:
 
             extras = extras_fn() if extras_fn is not None else {}
             save_round(self.prefix, rnd, params_fn(), **extras)
+
+    def _spans(self) -> dict:
+        """With --trace: the spans closed since the last round go to
+        ``spans.jsonl``, and the round's metrics line gets its
+        ``tmf.epoch`` span's host and device ms, its ``tmf.eval`` span's
+        ms and the counts of both spans and the spans inside them."""
+        recs = drain()
+        write_spans(spans_path(self.cfg.trace), recs)
+        out, counts = {}, {}
+        for part in ("epoch", "eval"):
+            rec = next((r for r in reversed(recs)
+                        if r["name"] == f"tmf.{part}"), None)
+            if rec is None:
+                continue
+            out[f"{part}_ms"] = (rec["t1"] - rec["t0"]) / 1e6
+            if rec["device_ms"] is not None:
+                out[f"{part}_device_ms"] = rec["device_ms"]
+            for r in subtree(recs, rec):
+                for k, v in r["attrs"].items():
+                    if k in COUNTS or k.startswith("groups_"):
+                        counts[k] = counts.get(k, 0) + v
+        if counts:
+            out["counts"] = counts
+        return out
 
     def close(self):
         if self.ml is not None:
@@ -255,6 +290,13 @@ def _slot_phase_ladder(cfg, mk, log, start=0):
 
 
 def _mf_runner_schedule(cfg, train_ds, params, log, start=0):
+    """``_mf_schedule`` in a ``tmf.plan_build`` span: every plan build,
+    statistic and route probe of the schedule, on the host."""
+    with span("tmf.plan_build"):
+        return _mf_schedule(cfg, train_ds, params, log, start)
+
+
+def _mf_schedule(cfg, train_ds, params, log, start=0):
     """Epoch-indexed schedule ``[(first_epoch, runner), ...]``; each runner
     serves epochs [first_epoch, next phase's first_epoch).
 
@@ -389,13 +431,25 @@ def _run_schedule(cfg, sched, test_ds, params, log, obs,
     each runner's form (fused tables, or the sharded runner's
     (theta, [phi_k])); ``trim`` gives params for each epoch's eval, each
     handover and each state file."""
+    with span("tmf.run", first=start + 1, last=cfg.iters):
+        return _epochs(cfg, sched, test_ds, params, log, obs, start)
+
+
+def _epochs(cfg, sched, test_ds, params, log, obs, start) -> MFParams:
+    """The body of ``_run_schedule``, in the spans of its parts: the first
+    ``tmf.pad``, each ``tmf.handover`` (its ``tmf.trim`` and ``tmf.pad``),
+    ``tmf.epoch`` (the runner's epoch and the device synchronize after
+    it), ``tmf.eval`` (its ``tmf.trim`` and the RMSE) and the final
+    ``tmf.trim``."""
     dev = params.theta.device
+    cuda = dev.type == "cuda"
     if test_ds is not None:  # the test set crosses to the device once
         test_ds = SimpleNamespace(**{
             k: torch.as_tensor(getattr(test_ds, k)).to(dev) for k in "uvr"})
     runner = sched[0][1]
     upcoming = list(sched[1:])
-    tables = runner.pad(params)
+    with span("tmf.pad"):
+        tables = runner.pad(params)
     gb = float(params.gb)
     t0 = time.perf_counter()
     for it in range(start + 1, cfg.iters + 1):
@@ -403,23 +457,36 @@ def _run_schedule(cfg, sched, test_ds, params, log, obs,
             nxt = upcoming.pop(0)[1]
             log(f"# epoch {it}: switching to {type(nxt).__name__}"
                 f"{' (striped)' if getattr(nxt, 'striped', False) else ''}")
-            tables = nxt.pad(runner.trim(tables))
+            with span("tmf.handover", src=type(runner).__name__,
+                      dst=type(nxt).__name__):
+                with span("tmf.trim"):
+                    p = runner.trim(tables)
+                with span("tmf.pad"):
+                    tables = nxt.pad(p)
+                del p
             runner = nxt
-        tables = runner.epoch(tables, cfg.eta_at(it), cfg.lam, gb,
-                              epoch_idx=it)
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
+        eta = cfg.eta_at(it)
+        with span("tmf.epoch", cuda, epoch=it, kernel=type(runner).__name__,
+                  eta=eta):
+            tables = runner.epoch(tables, eta, cfg.lam, gb, epoch_idx=it)
+            if cuda:
+                torch.cuda.synchronize(dev)
         elapsed = time.perf_counter() - t0
         t_rmse = None
         if test_ds is not None:
-            t_rmse = rmse(runner.trim(tables), test_ds)
+            with span("tmf.eval"):
+                with span("tmf.trim"):
+                    p = runner.trim(tables)
+                t_rmse = rmse(p, test_ds)
+                del p
             log(f"iter#{it}\t{elapsed:f}\ttRMSE={t_rmse:f}")
         else:
             log(f"iter#{it}\t{elapsed:f}")
         obs.epoch_done(it, params_fn=lambda: runner.trim(tables), alg="mf",
-                       kernel=type(runner).__name__, eta=cfg.eta_at(it),
+                       kernel=type(runner).__name__, eta=eta,
                        elapsed=elapsed, tRMSE=t_rmse)
-    return MFParams(*(t.contiguous() for t in runner.trim(tables)))
+    with span("tmf.trim"):
+        return MFParams(*(t.contiguous() for t in runner.trim(tables)))
 
 
 # ---- DP-SGLD ------------------------------------------------------------------
