@@ -34,8 +34,13 @@ results: 3, 5, 24, 25 and 29; 7-10; 12 and 14; 16 and 18:
   4. the gen-1 path: the same run with ``use_dense=False`` (``--no-dense``):
      the gen-1 kernel must carry every epoch and the dense kernel none, and
      tRMSE must fall; then its epochs timed as in phase 3 on that run's
-     runner and plans; then epoch 1's
-     plan in turns with the same plan at every weight 0 (the walk's
+     runner and plans (on the walk ``cell_sgd.cu``'s route picks); then
+     epoch 1's plan through the plain version once and on the grid and the
+     tile walk in turns (grid, tile, tile, grid), each held to the plain
+     version, with the tile walk's units, windows, critical path and
+     route, and its clocks per window step by phase (a
+     ``-DTMF_TILE_CLOCKS`` build); then epoch 1's plan on the grid walk in
+     turns with the same plan at every weight 0 (the grid walk's
      skeleton), us per window step;
   5. the {result}_3 checkpoint written, read back and checked;
   6. the rank-8 path with dense on: ``train_mf`` at dim 8, 3 epochs: the
@@ -119,7 +124,8 @@ results: 3, 5, 24, 25 and 29; 7-10; 12 and 14; 16 and 18:
      at the CLI defaults' eta, trim: the runner's and ``cell_epoch``'s
      launches must rise by one every epoch and no other kernel's, tRMSE
      must fall; then epoch 1 from the same tables, plain version, kernel,
-     kernel, timed with CUDA events and held as in phase 9;
+     kernel, timed with CUDA events and held as in phase 9, then on both
+     walks of ``cell_sgd.cu`` in turns as in phase 4;
  21. the free-column path the same way: ``FreeEpochRunner`` at dim 64 (its
      default balance, saturation and picked batch), counted on
      ``FreeEpochRunner.launches`` and ``free_epoch.launches``, every epoch
@@ -144,7 +150,9 @@ results: 3, 5, 24, 25 and 29; 7-10; 12 and 14; 16 and 18:
      timed with CUDA events, updates/s and the run's peak device memory;
      then, on that run's runner and plans, shard 0's sub-epoch of epoch 1
      through the plain version and the kernel (twice), timed and held as
-     in phase 9;
+     in phase 9, and at each grouping of ``Y_GROUPS`` through the plain
+     version once and on the grid and the tile walk in turns, each held to
+     the plain version, with the tile walk's clocks at 8/8 and 4/4;
  24. ``--resume`` through the CLI (``tpu_mf_torch.cli.main``) at phase 3's
      configuration: the stand-in written as raw text (once a run, shared
      with phases 26-28), 2 epochs with ``--result --resume``, then
@@ -923,8 +931,9 @@ def time_one_epoch(torch, tc, cfg, runner, train, test, init, it, name,
             f"{[round(x, 3) for x in ts]}, rating updates/s "
             f"{[round(n / (x / 1e3)) for x in ts]}")
     hold(f"{name} epoch {it} (eta {eta:g}, groups {tg}/{pg}, "
-         f"{plan.u.shape[0]} batches, columns of {plan.u.shape[2]}), kernel "
-         f"vs plain", out["kernel"], out["plain"], init, atol, phase)
+         f"{plan.u.shape[0]} batches, columns of {plan.u.shape[2]}, "
+         f"{cell_route(tc, runner, eta, it)} walk), kernel vs plain",
+         out["kernel"], out["plain"], init, atol, phase)
     rm_k, rm_p = rmse(out["kernel"], test), rmse(out["plain"], test)
     log(f"# phase {phase}: {name} tRMSE kernel {rm_k:.6f} plain {rm_p:.6f}")
     if not abs(rm_k - rm_p) <= 1e-3:
@@ -1120,6 +1129,16 @@ def phase_time_cells(torch, tc, cfg, train, test, params_final, rm, r,
 
     ms = time_in_turns(torch, cfg, r, plain, train, test, params_final,
                        rm, 4, "cell_sgd", ATOL_CELL_FULL)
+    log(f"# phase 4: the epochs above ran on the "
+        f"{cell_route(tc, r, cfg.eta_at(1), 1)} walk (the route)")
+    from tpu_mf_torch.models.mf import init_mf
+
+    init = init_mf(train.nu, train.nv, DIM, cfg.gb,
+                   torch.Generator().manual_seed(cfg.seed), DEVICE)
+    time_cell_walks(torch, tc, r, lambda: r.pad(init), cfg.eta_at(1),
+                    cfg.lam, cfg.gb, 1, 4, "epoch 1", ATOL_CELL_FULL)
+    cell_clocks(torch, tc, r, lambda: r.pad(init), cfg.eta_at(1), cfg.lam,
+                cfg.gb, 1, 4, "epoch 1")
     time_skeleton(torch, tc, cfg, r, train)
     p = r.plan
     return ms + (window_bound(r._dev[1], p.n_gu * p.tile_u,
@@ -1127,11 +1146,11 @@ def phase_time_cells(torch, tc, cfg, train, test, params_final, rm, r,
 
 
 def time_skeleton(torch, tc, cfg, r, train):
-    """Epoch 1's plan on ``cell_sgd.cu`` and the same plan with every weight
-    0 (its skeleton: slot loads, the step's two grid syncs and the apply's
-    count reads; every slot returns at w == 0 and every row at k == 0), in
-    turns, timed with CUDA events; logs the us per window step of each and
-    their difference (the memory chain)."""
+    """Epoch 1's plan on ``cell_sgd.cu``'s grid walk and the same plan with
+    every weight 0 (its skeleton: slot loads, the step's two grid syncs and
+    the apply's count reads; every slot returns at w == 0 and every row at
+    k == 0), in turns, timed with CUDA events; logs the us per window step
+    of each and their difference (the memory chain)."""
     from tpu_mf_torch.models.mf import init_mf
 
     eta = cfg.eta_at(1)
@@ -1148,16 +1167,95 @@ def time_skeleton(torch, tc, cfg, r, train):
         a.record()
         tc.cell_epoch(*tabs, plan if which == "full" else pad, eta, cfg.lam,
                       cfg.gb, max(1.0, 0.2 / eta), DIM, tg, pg, r.work_dtype,
-                      r.saturate, r.mxu_pred)
+                      r.saturate, r.mxu_pred, walk="grid")
         b.record()
         torch.cuda.synchronize()
         ts[which].append(a.elapsed_time(b))
     full, skel = median(ts["full"]), median(ts["skeleton"])
-    log(f"# phase 4: {steps} window steps (groups {tg}/{pg}): epoch ms "
+    log(f"# phase 4: grid walk, {steps} window steps (groups {tg}/{pg}): "
+        f"epoch ms "
         f"{[round(x, 3) for x in ts['full']]}, all-padding ms "
         f"{[round(x, 3) for x in ts['skeleton']]}; us per step: full "
         f"{full * 1e3 / steps:.3f}, skeleton {skel * 1e3 / steps:.3f}, "
         f"memory chain {(full - skel) * 1e3 / steps:.3f}")
+
+
+def cell_route(tc, runner, eta, it):
+    """The walk ``csrc/cell_sgd.cu`` takes on ``runner``'s plan of epoch
+    ``it`` at eta's groups (``upload_window_walks``' route)."""
+    plan = runner.materialize()._dev[it % len(runner._dev)]
+    return runner.route(it, runner.pick_theta_groups(eta),
+                        runner.pick_phi_groups(eta)) if plan.walk else "grid"
+
+
+def time_cell_walks(torch, tc, runner, fresh, eta, lam, gb, it, phase,
+                    label, atol, groups=None):
+    """``runner``'s plan of epoch ``it`` (a window runner) at ``groups``
+    (default: eta's): the plain version once, then ``csrc/cell_sgd.cu``'s
+    grid and tile walks in turns (grid, tile, tile, grid), each from the
+    tables ``fresh()`` makes, timed with CUDA events, each walk's tables
+    held to the plain version's (the largest element difference within
+    ``atol``); logs the route and the tile walk's units, windows, critical
+    path and clusters. Returns {"plain" / walk: median ms} and {walk:
+    max_abs_err}."""
+    saved = runner.theta_groups, runner.phi_groups
+    if groups is not None:
+        runner.theta_groups, runner.phi_groups = groups
+    try:
+        tg, pg = runner.pick_theta_groups(eta), runner.pick_phi_groups(eta)
+        plan = runner.materialize()._dev[it % len(runner._dev)]
+        dw = tc.cell_walk(plan, tg, pg)
+        w = dw.walks[0]
+        times, out = {"plain": [], "grid": [], "tile": []}, {}
+        for which in ("plain", "grid", "tile", "tile", "grid"):
+            tabs = fresh()
+            a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            a.record()
+            if which == "plain":
+                tc.cell_epoch_reference(
+                    *tabs, plan, eta, lam, gb, max(1.0, 0.2 / eta),
+                    runner.dim, tg, pg, runner.work_dtype, runner.saturate,
+                    runner.mxu_pred)
+            else:
+                runner.epoch(tabs, eta, lam, gb, epoch_idx=it, walk=which)
+            b.record()
+            torch.cuda.synchronize()
+            times[which].append(a.elapsed_time(b))
+            out.setdefault(which, tabs)
+        errs = {k: max(float((x - y).abs().max())
+                       for x, y in zip(out[k], out["plain"])) for k in WALKS}
+    finally:
+        runner.theta_groups, runner.phi_groups = saved
+    log(f"# phase {phase}: {label} groups {tg}/{pg} (window {w.window} "
+        f"columns of {plan.u.shape[2]}, route {dw.route}): tile walk "
+        f"{w.n_units} units, {w.n_windows} windows, critical path {w.crit}, "
+        f"clusters of {dw.cluster}; epoch ms plain "
+        f"{[round(x, 3) for x in times['plain']]}, grid "
+        f"{[round(x, 3) for x in times['grid']]}, tile "
+        f"{[round(x, 3) for x in times['tile']]}; max_abs_err vs plain: grid "
+        f"{errs['grid']:.3e}, tile {errs['tile']:.3e} (atol {atol:g})")
+    if not all(e <= atol for e in errs.values()):
+        raise AssertionError(f"{label}: a walk of cell_sgd.cu and the plain "
+                             f"version disagree at groups {tg}/{pg}")
+    return {k: median(v) for k, v in times.items()}, errs
+
+
+def cell_clocks(torch, tc, runner, fresh, eta, lam, gb, it, phase, label,
+                groups=None):
+    """``tile_clocks`` of ``csrc/cell_sgd.cu``'s tile walk on ``runner``'s
+    epoch ``it`` at ``groups`` (default: eta's)."""
+    saved = runner.theta_groups, runner.phi_groups
+    if groups is not None:
+        runner.theta_groups, runner.phi_groups = groups
+    try:
+        tile_clocks(torch, tc, "cell", phase,
+                    f"{label} groups {runner.pick_theta_groups(eta)}/"
+                    f"{runner.pick_phi_groups(eta)}", runner,
+                    lambda tabs: runner.epoch(tabs, eta, lam, gb,
+                                              epoch_idx=it, walk="tile"),
+                    fresh, source="cell_sgd")
+    finally:
+        runner.theta_groups, runner.phi_groups = saved
 
 
 def phase_time_ladder(torch, tc, cfg, train, test, init, sched):
@@ -1184,8 +1282,10 @@ def phase_time_ladder(torch, tc, cfg, train, test, init, sched):
             b.record()
             torch.cuda.synchronize()
             ts.append(a.elapsed_time(b))
-        log(f"# phase 10: {name} kernel: epoch ms {[round(x, 3) for x in ts]}"
-            f", rating updates/s {[round(len(train) / (x / 1e3)) for x in ts]}")
+        log(f"# phase 10: {name} kernel "
+            f"({cell_route(tc, r, cfg.eta_at(ep), ep)} walk): epoch ms "
+            f"{[round(x, 3) for x in ts]}, rating updates/s "
+            f"{[round(len(train) / (x / 1e3)) for x in ts]}")
     return timed[0], timed[1]
 
 
@@ -1243,15 +1343,16 @@ TILE_CLOCK_PHASES = ("ticket", "wait", "noise", "scatter",
                      "release")
 
 
-def tile_clocks(torch, mod, name, phase, label, runner, run, fresh):
+def tile_clocks(torch, mod, name, phase, label, runner, run, fresh,
+                source=None):
     """A diagnostic: ``run(fresh())`` (the tile walk's launches of one epoch
-    or round) on the clock build of ``csrc/{name}_cells.cu``
-    (``-DTMF_TILE_CLOCKS``), logging clocks per window step and block of
-    each phase. The main build has no clocks."""
+    or round) on the clock build of ``csrc/{source}.cu`` (default
+    ``{name}_cells``; ``-DTMF_TILE_CLOCKS``), logging clocks per window
+    step and block of each phase. The main build has no clocks."""
     from tpu_mf_torch.ops import _build
 
     lib = getattr(mod, f"bind_{name}_lib")(_build.load(
-        f"{name}_cells", defines=("TMF_TILE_CLOCKS",)))
+        source or f"{name}_cells", defines=("TMF_TILE_CLOCKS",)))
     fn = getattr(lib, f"tmf_{name}_walk_clocks")
     fn.argtypes = [ctypes.c_void_p]
     fn.restype = ctypes.c_int
@@ -2068,6 +2169,8 @@ def phase_mega(torch, tc, tm, tf, train, test):
                               "mega", 20, ATOL_CELL_FULL)
     log(f"# phase 20: epoch 1 at eta {eta:g}: groups "
         f"{r.pick_theta_groups(eta)}/{r.pick_phi_groups(eta)}")
+    time_cell_walks(torch, tc, r, lambda: r.pad(init), eta, cfg.lam,
+                    float(init.gb), 1, 20, "mega epoch 1", ATOL_CELL_FULL)
     return launches, timed
 
 
@@ -2221,6 +2324,9 @@ def time_free_walks(torch, tf, cfg, r, train, test, init, it, eta, tg, pg,
 Y_USERS, Y_ITEMS, Y_RATINGS, Y_SEED = 1_000_990, 624_961, 20_000_000, 11
 # the CLI's default rank: 256-lane rows, 18 item shards at the stand-in
 Y_DIM = 128
+# phase 23: the (theta, phi) groups the Yahoo cell's shards take as eta
+# falls, and two where the phi side is the wider, shard 0 timed at each
+Y_GROUPS = ((8, 8), (4, 4), (4, 8), (2, 2), (2, 4), (4, 2), (1, 1))
 
 
 def yahoo_corner(rng, tu, tv, n_gu, n_gv):
@@ -2396,6 +2502,16 @@ def phase_sharded(torch, tc, train, test):
                f"{inner.pick_theta_groups(eta)}/{inner.pick_phi_groups(eta)}"
                f", {plan.u.shape[0]} batches, {n0} ratings), kernel vs "
                "plain", out["kernel"], out["plain"], init, ATOL_CELL_FULL, 23)
+    def shard0():
+        tabs = r.pad(init)
+        return tabs[0], tabs[1][0]
+
+    for groups in Y_GROUPS:
+        time_cell_walks(torch, tc, inner, shard0, eta, cfg.lam, cfg.gb, it,
+                        23, "shard 0", ATOL_CELL_FULL, groups)
+    for groups in Y_GROUPS[:2]:
+        cell_clocks(torch, tc, inner, shard0, eta, cfg.lam, cfg.gb, it, 23,
+                    "shard 0", groups)
     rows_u, rows_v = touched_rows(plan)
     p = inner.plan
     log(f"# phase 23: shard 0's plan touches {rows_u} of {p.n_gu * p.tile_u}"
@@ -2697,8 +2813,10 @@ def phase_stream(torch, tc, train, test, gen1_rm):
         log(f"# phase 26: epoch 1, shard 0 {what}: ms "
             f"{[round(x, 3) for x in ts]}, rating updates/s "
             f"{[round(n0 / (x / 1e3)) for x in ts]}")
+    route = tc.cell_walk(plan, 8, 8).route
     err = hold(f"epoch 1's streamed launch ({plan.u.shape[0]} batches, {n0} "
-               "ratings, groups 8/8, no saturation), kernel vs plain",
+               f"ratings, groups 8/8, no saturation, {route} walk), kernel "
+               "vs plain",
                out["kernel"], out["plain"], init, ATOL_CELL_FULL, 26)
     rows_u, rows_v = touched_rows(plan)
     timed = (median(times["kernel"]), median(times["plain"]),

@@ -239,6 +239,102 @@ def test_train_mf_spans_time_the_epochs_on_the_card(cuda, use_dense,
         "tmf.plan_build", "tmf.run"]
 
 
+# csrc/cell_sgd.cu's tile walk: (tile_u, tile_v, batch, dim) of a plan
+# whose applies cover whole tiles, as the grid walk's, and of one whose
+# groups hold fewer slots than the tiles have rows, so the walk claims the
+# touched rows slot by slot (the Yahoo geometry's case; rows past 157
+# lanes at dim 170)
+CELL_WALK_PLANS = {"rows": (96, 80, 1024, 40), "claimed": (512, 256, 512, 170)}
+# (theta, phi) groups: equal, unequal both ways, whole batches
+CELL_WALK_GROUPS = [(8, 8), (4, 4), (4, 8), (8, 4), (2, 2), (1, 1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("walk", ["tile", "grid"])
+@pytest.mark.parametrize("groups", CELL_WALK_GROUPS,
+                         ids=[f"{t}x{p}" for t, p in CELL_WALK_GROUPS])
+@pytest.mark.parametrize("case", sorted(CELL_WALK_PLANS))
+@pytest.mark.parametrize("mxu,atol", [("float32", 1e-4), ("bfloat16", 2e-3)])
+def test_cell_walks_match_reference(cuda, mxu, atol, case, groups, walk):
+    """Both walks of csrc/cell_sgd.cu against cell_epoch_reference on the
+    card, saturating, at every kind of grouping, on plans padded with
+    all-padding batches (nb_round): the tolerances of
+    test_cell_kernel_matches_reference; the launch counts on its walk."""
+    tu, tv, batch, dim = CELL_WALK_PLANS[case]
+    ds = synthetic_ratings(1500, 1000, 40000, rank=3, noise=0.3, seed=5,
+                           zipf=1.0, zipf_q=20.0)
+    tabs = np_tables(ds.nu, ds.nv, dim, seed=6, gb=3.0)
+    tg, pg = groups
+    r = tc.CellEpochRunner(ds, tile_u=tu, tile_v=tv, batch=batch, seed=7,
+                           mxu=mxu, theta_groups=tg, phi_groups=pg,
+                           saturate=True, nb_round=16, device=cuda)
+    eta = 0.05
+    base = r.pad(params_from_numpy(*tabs, device=cuda))
+    ref = tuple(t.clone() for t in base)
+    tc.cell_epoch_reference(*ref, r._dev[0], eta, 0.005, 3.0,
+                            max(1.0, 0.2 / eta), r.dim, tg, pg,
+                            r.work_dtype, True, r.mxu_pred)
+    before = dict(tc.cell_epoch.walks)
+    r.epoch(base, eta, 0.005, 3.0, walk=walk)
+    r.epoch(base, eta, 0.005, 3.0, walk=walk)  # counters: a second launch
+    torch.cuda.synchronize()
+    assert tc.cell_epoch.walks[walk] == before[walk] + 2
+    again = tuple(t.clone() for t in ref)
+    tc.cell_epoch_reference(*again, r._dev[0], eta, 0.005, 3.0,
+                            max(1.0, 0.2 / eta), r.dim, tg, pg,
+                            r.work_dtype, True, r.mxu_pred)
+    for a, b in zip(base, again):
+        assert float((a - b).abs().max()) <= atol
+    assert float((base[0] - ref[0]).abs().max()) > 1e-3  # it trained
+    slices = r.walk_counters._slices
+    assert slices is None or not slices.any()  # left zero
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["packed", "slot", "stripe", "mega",
+                                    "sharded"])
+def test_cell_tile_walk_on_every_plan_family(cuda, family):
+    """The tile walk of csrc/cell_sgd.cu, forced, on the packed, slot,
+    striped-slot and mega window plans and on an item-sharded epoch (the
+    shards' runners on one set of counters) against the plain version on
+    the card, f32, 8/8 and eta 0.02's groups."""
+    ds = synthetic_ratings(500, 400, 40000, rank=3, noise=0.3, seed=5,
+                           zipf=1.0, zipf_q=20.0)
+    dim = 8 if family in ("packed", "slot", "stripe") else 40
+    tabs = np_tables(ds.nu, ds.nv, dim, seed=6, gb=3.0)
+    if family == "sharded":
+        r = PhiShardedRunner(ds, dim=dim, tile_u=96, tile_v=80, batch=1024,
+                             budget=80 * 128 * 4, mxu="float32", device=cuda)
+        assert r.n_shards == 5
+        assert len({id(i.walk_counters) for i in r.inners}) == 1
+        runners = r.inners
+    elif family == "mega":
+        r = tm.MegaEpochRunner(ds, dim=dim, tile_u=128, tile_v=128,
+                               batch=1024, mxu="float32", saturate=True,
+                               device=cuda)
+        runners = [r]
+    else:
+        r = LADDER[family](ds, seed=7, dim=dim, mxu="float32",
+                           saturate=True, device=cuda)
+        runners = [r]
+    for eta in (0.2, 0.02):
+        got = r.pad(params_from_numpy(*tabs, device=cuda))
+        want = r.pad(params_from_numpy(*tabs, device=cuda))
+        wants = (list(zip([want[0]] * len(runners), want[1]))
+                 if family == "sharded" else [want])
+        for inner, (theta, phi) in zip(runners, wants):
+            tc.cell_epoch_reference(
+                theta, phi, inner._dev[0], eta, 0.005, 3.0,
+                max(1.0, 0.2 / eta), dim, inner.pick_theta_groups(eta),
+                inner.pick_phi_groups(eta), inner.work_dtype,
+                inner.saturate, inner.mxu_pred)
+        r.epoch(got, eta, 0.005, 3.0, walk="tile")
+        torch.cuda.synchronize()
+        err = max(float((a - b).abs().max())
+                  for a, b in zip(r.trim(got), r.trim(want)))
+        assert err <= 1e-4, (eta, err)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("mxu,atol", [("float32", 1e-4), ("bfloat16", 2e-3)])
 def test_phi_sharded_runner_matches_reference(cuda, mxu, atol):

@@ -20,8 +20,10 @@ from tpu_mf_torch.models.mf import params_from_numpy
 from tpu_mf_torch.ops import adreg_cells as tac
 from tpu_mf_torch.ops import adreg_slot as tas
 from tpu_mf_torch.ops import sgld_cells as tg
+from tpu_mf_torch.ops import sgd_cells as tc
 from tpu_mf_torch.ops import sgld_slot as tss
 from tpu_mf_torch.ops import tile_walk as tw
+from tpu_mf_torch.ops.phi_shard import PhiShardedRunner
 from tpu_mf_torch.ops.sgd_cells import (
     CellPlan,
     _apply_flags,
@@ -191,6 +193,42 @@ def test_route_by_critical_path():
         tw.plan_tile_walk(plan_of(gu, np.zeros((8, 8)), w), 0, 8, 3)
 
 
+# (tile_u, tile_v, column slots, batches, window, critical path, windows,
+# cluster size, walk) of the benchmark cells' csrc/cell_sgd.cu plans: gen-1
+# at ML-10M and a Yahoo shard, as the host planner counts them, with the
+# cluster size and the walk timed fastest on the H100 (PERF.md)
+CELL_MODEL = [
+    (256, 272, 1024, 1365, 1, 312, 10920, 4, "tile"),
+    (256, 272, 1024, 1365, 4, 282, 2730, 16, "tile"),
+    (256, 272, 1024, 1365, 8, 277, 1365, 16, "tile"),
+    (4096, 2040, 512, 768, 1, 262, 4410, 8, "tile"),
+    (4096, 2040, 512, 768, 2, 253, 2205, 16, "tile"),
+    (4096, 2040, 512, 768, 4, 249, 1225, 16, "tile"),
+    (4096, 2040, 512, 768, 8, 247, 735, 16, "grid"),
+]
+
+
+@pytest.mark.parametrize("case", CELL_MODEL,
+                         ids=[f"{c[0]}x{c[1]}-w{c[4]}" for c in CELL_MODEL])
+def test_cell_cluster_size_and_route(case):
+    """csrc/cell_sgd.cu's model (cell_cluster_size, cell_walk_rows and
+    tile_walk_route over the grid walk's every window) picks, from a plan's
+    counts, the cluster size and the walk the H100 timed fastest: clusters
+    of 4 for gen-1's 8/8 windows, whose count, not the chain, bounds the
+    walk on 16 clusters; 16 for wide windows; the grid walk for a Yahoo
+    shard's whole-batch windows (a tie on the card)."""
+    tu, tv, sub, nb, window, crit, n, size, route = case
+    base = tw.plan_tile_walk(plan_of([0], np.zeros((1, 8)),
+                                     np.ones((1, 1, 8))), 0, 1)
+    walk = base._replace(window=window, slots=window * sub, crit=crit,
+                         n_windows=n)
+    rows, grid_rows = tw.cell_walk_rows(tu, tv, sub, window)
+    assert tw.cell_cluster_size(walk, rows) == size
+    assert tw.tile_walk_route(walk, size, rows=rows,
+                              grid_windows=nb * 8 // window,
+                              grid_rows=grid_rows) == route
+
+
 @pytest.mark.parametrize("groups", [1, 2, 4, 8])
 def test_tile_apply_flags(groups):
     """Without padding the walk's flags are _apply_flags; a padding column
@@ -313,7 +351,18 @@ def run_launch(dev, cnt, walk: tw.DeviceWalk, s, n_clusters, window, tap,
             done.append(unit)
             yield None
 
-    active = [cluster() for _ in range(n_clusters)]
+    interleave(dev, gen, [cluster() for _ in range(n_clusters)], rng)
+    assert sorted(done) == list(range(n_units))
+    assert not holds
+    assert dev.ticket == (base + n_units + n_clusters) % MASK32
+    cnt.advance(n_units, n_clusters)
+    return max(overlap, default=0)
+
+
+def interleave(dev, gen, active, rng):
+    """Run the simulated clusters (generators that yield the (tile, wait
+    value) they spin on, or None at a step's end) one step at a time, in a
+    random order among those whose wait the counters meet."""
     blocked = {}
     while active:
         ready = [g for g in active
@@ -329,11 +378,6 @@ def run_launch(dev, cnt, walk: tw.DeviceWalk, s, n_clusters, window, tap,
             continue
         if wait is not None:  # (tile, wait value) it spins on
             blocked[g] = wait
-    assert sorted(done) == list(range(n_units))
-    assert not holds
-    assert dev.ticket == (base + n_units + n_clusters) % MASK32
-    cnt.advance(n_units, n_clusters)
-    return max(overlap, default=0)
 
 
 def masked(plan, i, lo, hi, flags=None):
@@ -691,6 +735,246 @@ def test_gen1_sgld_replay_matches_interpret_kernel():
                                       want[k].astype(np.int64))
 
 
+# ---- csrc/cell_sgd.cu's tile walk -----------------------------------------
+
+def mf_launch(dev, plan, dwalk, tables, eta, lam, gb, dim, tg, pg,
+              n_clusters, rng):
+    """One launch of ``cell_walk_kernel`` replayed (f32, saturating) on
+    ``n_clusters`` simulated clusters: units by ticket, the waits and
+    releases as the kernel makes them, interleaved at random where the
+    counters allow; per window step of min(tg_w, pg_w) columns the scatter
+    of its real columns into the cluster's own dtheta slice and acc
+    (``window_scatter``), and at a theta group end (or the unit's last
+    step) where the slice holds deltas, and at a phi group end with an
+    apply flag, the applies (``window_apply``): of every row of the tiles,
+    or, where a group holds fewer slots than the tile has rows, of the rows
+    its slots touched, each applied by the first slot (in a random order)
+    that claims its count. Asserts that a unit holds every tile it touches
+    and leaves its slice zero, and that acc ends zero. Returns the most
+    units that held tiles at once."""
+    theta, phi = tables
+    cnt = dwalk.counters
+    host = dwalk.walks[0]
+    n_units = host.n_units
+    col_tile = dwalk.col_tile.numpy()
+    col_wait = dwalk.col_wait.numpy()
+    col_rel = dwalk.col_rel.numpy()
+    tap = dwalk.tap[pg].numpy().reshape(-1)
+    tu, tv, lanes = plan.tile_u, plan.tile_v, theta.shape[1]
+    sub = plan.u.shape[2]
+    tg_w, pg_w = 8 // tg, 8 // pg
+    step = min(tg_w, pg_w)
+    claim_u, claim_v = tg_w * sub < tu, sub < tv
+    eta_t, lam_t, gb_t, cap_t = torch.tensor(
+        [eta, lam, gb, max(1.0, 0.2 / eta)], dtype=torch.float32)
+    apply = tc.window_apply(eta_t, lam_t, cap_t, lanes, dim, True)
+    acc = torch.zeros_like(phi)
+    gen, base = cnt.gen, cnt.ticket_base
+    holds, done, overlap = {}, [], []
+
+    def acquire(t, wv, unit):
+        while wv > 0 and dev.ready[t] != stamp(gen, wv):
+            yield t, wv
+        assert holds.get(t) is None, f"tile {t} held by {holds[t]}"
+        holds[t] = unit
+        overlap.append(len(set(holds.values())))
+
+    def release(t, w1, unit):
+        assert holds.pop(t) == unit
+        dev.ready[t] = stamp(gen, w1)
+
+    def claimed(cols, ids, rows_of):
+        """The rows the real slots of ``cols`` touched, one entry a slot,
+        in a random order."""
+        out = []
+        for c in cols:
+            if col_tile[c] >= 0:
+                real = plan.w[c // 8, c % 8] > 0
+                out += [rows_of(c, int(x)) for x in ids[c // 8, c % 8][real]]
+        return [out[k] for k in rng.permutation(len(out))]
+
+    def apply_rows(tab, d, rows, side):
+        for r in rows:
+            if d[r, dim + 2] != 0:  # the first claim takes the count
+                tab[r:r + 1] = apply(tab[r:r + 1], d[r:r + 1], side)
+                d[r] = 0.0
+
+    def cluster():
+        ds = torch.zeros(tu, lanes)
+        while True:
+            t = dev.ticket
+            dev.ticket = (t + 1) % MASK32
+            unit = (t - base) % MASK32
+            if unit >= n_units:
+                return
+            c0, c1 = int(host.unit_c0[unit]), int(host.unit_c1[unit])
+            gut = int(host.unit_gu[unit])
+            ut = cnt.n_gv + gut
+            th = theta[gut * tu:(gut + 1) * tu]
+            yield from acquire(ut, int(host.unit_wait[unit]), unit)
+            dirty = False
+            for s in range(c0 - c0 % step, c1, step):
+                end = s + step
+                lo, hi = max(s, c0), min(end, c1)
+                real = [c for c in range(lo, hi) if col_tile[c] >= 0]
+                last = end >= c1
+                th_apply = (dirty or bool(real)) and (end % tg_w == 0
+                                                      or last)
+                t0, g0 = (end - 1) // tg_w * tg_w, (end - 1) // pg_w * pg_w
+                ph = (end % pg_w == 0 or last) and any(
+                    tap[c] for c in range(max(g0, c0), hi))
+                if not real and not th_apply and not ph:
+                    continue
+                if real:
+                    for c in real:
+                        if col_wait[c] >= 0:
+                            yield from acquire(int(col_tile[c]),
+                                               int(col_wait[c]), unit)
+                    assert holds.get(ut) == unit
+                    assert all(holds.get(int(col_tile[c])) == unit
+                               for c in real)
+                    for c in real:
+                        i, k = divmod(c, 8)
+                        tc.window_scatter(th, phi, plan, i, k, k + 1, eta_t,
+                                          gb_t, dim, torch.float32, False,
+                                          ds, acc)
+                    dirty = True
+                    yield None
+                if not th_apply and not ph:
+                    continue
+                if th_apply:
+                    if claim_u:
+                        apply_rows(th, ds, claimed(
+                            range(max(t0, c0), hi), plan.u,
+                            lambda c, x: x), 0)
+                    else:
+                        th[:] = apply(th, ds, 0)
+                        ds.zero_()
+                    assert not ds.any()
+                    dirty = False
+                if ph:
+                    cols = range(max(g0, c0), hi)
+                    assert all(holds.get(int(col_tile[c])) == unit
+                               for c in cols if col_tile[c] >= 0)
+                    if claim_v:
+                        apply_rows(phi, acc, claimed(
+                            cols, plan.v,
+                            lambda c, x: int(col_tile[c]) * tv + x), 1)
+                    else:
+                        for c in cols:
+                            if tap[c]:
+                                rows = slice(int(col_tile[c]) * tv,
+                                             (int(col_tile[c]) + 1) * tv)
+                                phi[rows] = apply(phi[rows], acc[rows], 1)
+                                acc[rows] = 0.0
+                yield None
+                if ph:
+                    for c in range(max(g0, c0), hi):
+                        if col_rel[c] > 0:
+                            release(int(col_tile[c]), int(col_rel[c]), unit)
+            release(ut, int(host.unit_wait[unit]) + 1, unit)
+            assert not ds.any()
+            done.append(unit)
+            yield None
+
+    interleave(dev, gen, [cluster() for _ in range(n_clusters)], rng)
+    assert sorted(done) == list(range(n_units))
+    assert not holds and not acc.any()
+    assert dev.ticket == (base + n_units + n_clusters) % MASK32
+    cnt.advance(n_units, n_clusters)
+    return max(overlap, default=0)
+
+
+MF_REPLAY_GROUPS = [(8, 8), (4, 4), (4, 8), (2, 2), (1, 1)]
+
+
+@pytest.mark.parametrize("groups", MF_REPLAY_GROUPS,
+                         ids=[f"{t}x{p}" for t, p in MF_REPLAY_GROUPS])
+@pytest.mark.parametrize("family", ["gen1", "shard"])
+def test_mf_replay_matches_plan_order(family, groups):
+    """csrc/cell_sgd.cu's tile walk replayed (``mf_launch``) equals
+    cell_epoch_reference in plan order, f32, saturating, within 1e-6, at
+    equal and unequal groupings: on a gen-1 plan whose applies cover whole
+    tiles (the item side) or claimed rows (the user side at 8/8), and on
+    an item-sharded epoch (two shards on one set of counters, theta
+    chained) of tiles far taller than a column, padded with all-padding
+    batches (``nb_round``), whose applies are claimed."""
+    ds = synthetic_ratings(300, 200, 2500, rank=3, noise=0.3, seed=5,
+                           zipf=1.1)
+    tg, pg = groups
+    dim, eta, lam, gb = 12, 0.1, 0.05, 3.0
+    tabs = np_tables(ds.nu, ds.nv, dim, 3, gb)
+    if family == "gen1":
+        r = tc.CellEpochRunner(ds, tile_u=32, tile_v=16, batch=128, seed=2,
+                               mxu="float32", theta_groups=tg, phi_groups=pg,
+                               saturate=True, device="cpu")
+        runners = [r]
+    else:
+        r = PhiShardedRunner(ds, dim=dim, tile_u=64, tile_v=48, batch=64,
+                             seed=2, mxu="float32", budget=3 * 48 * 128 * 4,
+                             theta_groups=tg, phi_groups=pg, nb_round=8,
+                             device="cpu")
+        assert r.n_shards == 2
+        runners = r.inners
+        assert any(not tw.real_columns(i.plan.w).reshape(-1, 8)[-1].any()
+                   for i in runners)  # an all-padding batch
+    want = r.pad(params_from_numpy(*tabs, "cpu"))
+    start = r.pad(params_from_numpy(*tabs, "cpu"))
+    got = r.pad(params_from_numpy(*tabs, "cpu"))
+    split = (lambda t: [(t[0], p) for p in t[1]]) if family == "shard" \
+        else (lambda t: [t])
+    dev = Device(runners[0].walk_counters)
+    rng = np.random.default_rng(tg * 10 + pg)
+    overlap = 0
+    for inner, (th_w, ph_w), (th_g, ph_g) in zip(runners, split(want),
+                                                   split(got)):
+        plan = inner._dev[0]
+        tc.cell_epoch_reference(th_w, ph_w, plan, eta, lam, gb,
+                                max(1.0, 0.2 / eta), dim, tg, pg,
+                                torch.float32, True, True)
+        assert inner.walk_counters is runners[0].walk_counters
+        overlap = max(overlap, mf_launch(
+            dev, plan, tc.cell_walk(plan, tg, pg), (th_g, ph_g), eta, lam,
+            gb, dim, tg, pg, 3, rng))
+    for a, b in zip(r.trim(got), r.trim(want)):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=0, atol=1e-6)
+    moved = r.trim(want).theta - r.trim(start).theta
+    assert float(moved.abs().max()) > 1e-3
+    assert overlap >= 2  # units ran side by side
+
+
+def test_cell_walk_arrays_built_once_per_plan(monkeypatch):
+    """A window runner's materialize builds each plan's units and column
+    arrays once (one plan_tile_walks call a plan, none at a second
+    materialize), and the four window widths share them on the device:
+    the widths differ in their window count, critical path, cluster size
+    and route alone."""
+    calls = []
+    real = tw.plan_tile_walks
+
+    def counted(*args, **kw):
+        calls.append(args[1:3])
+        return real(*args, **kw)
+
+    monkeypatch.setattr(tw, "plan_tile_walks", counted)
+    ds, _ = zipf_sets()
+    r = tc.CellEpochRunner(ds, tile_u=32, tile_v=32, batch=64, n_plans=3,
+                           device="cpu")
+    r.materialize()
+    r.materialize()
+    assert len(calls) == 3
+    for p in r._dev:
+        assert sorted(p.walk) == [1, 2, 4, 8]
+        one = p.walk[1]
+        for window, dw in p.walk.items():
+            assert dw.walks[0].window == window
+            for f in ("unit_c0", "unit_c1", "unit_gu", "unit_wait",
+                      "col_tile", "col_wait", "col_rel", "tap"):
+                assert getattr(dw, f) is getattr(one, f)
+            assert dw.walks[0].col_rel is one.walks[0].col_rel
+        assert one.walks[0].n_windows > p.walk[8].walks[0].n_windows
+
+
 # ---- the counters' numbering ------------------------------------------------
 
 @pytest.mark.parametrize("start", [MASK32 - 3, MASK32 - 6])
@@ -758,8 +1042,18 @@ def test_counters_start_zeroed_and_advance():
     assert (cnt.gen, cnt.ticket_base) == (0, 4)
 
 
+def cell_route(w, tile_u, tile_v):
+    """The route ``upload_window_walks`` gives a window width's walk."""
+    walk = w.walks[0]
+    nb, sub = walk.col_tile.size // 8, walk.slots // walk.window
+    rows, grid_rows = tw.cell_walk_rows(tile_u, tile_v, sub, walk.window)
+    return tw.tile_walk_route(walk, w.cluster, rows=rows,
+                              grid_windows=nb * 8 // walk.window,
+                              grid_rows=grid_rows)
+
+
 @pytest.mark.parametrize("family", ["adreg", "slot_adreg", "sgld",
-                                    "slot_sgld"])
+                                    "slot_sgld", "cell", "phi_shard"])
 def test_runners_build_walks_and_routes(family):
     """Every runner builds its plans' tile walks at materialize, on one set
     of counters per runner, with a route; a launch range of a plan is
@@ -784,13 +1078,59 @@ def test_runners_build_walks_and_routes(family):
                               n_plans=2, device="cpu")
         walks = [p.walk for p in r.materialize()._dev]
         assert all(w.nz is not None for w in walks)
-    else:
+    elif family == "slot_sgld":
         r = tss.SlotSgldRunner(ds, sub=16, dim=8, tile=64, device="cpu")
         walks = [p.walk for p in r.materialize()._dev]
         assert set(np.unique(walks[0].tap[1].numpy())) <= {0, 1, 2}
+    else:  # csrc/cell_sgd.cu: each plan's walk at every window width
+        if family == "cell":
+            r = tc.CellEpochRunner(ds, tile_u=32, tile_v=32, batch=64,
+                                   n_plans=2, device="cpu")
+            inners = [r]
+        else:
+            r = PhiShardedRunner(ds, dim=8, tile_u=32, tile_v=32, batch=64,
+                                 budget=3 * 32 * 128 * 4, n_plans=2,
+                                 device="cpu")
+            assert r.n_shards == 3
+            inners = r.inners
+        walks = [dw for i in inners for p in i.materialize()._dev
+                 for dw in p.walk.values()]
+        assert len(walks) == 8 * len(inners)
+        for w in walks:
+            assert w.route == cell_route(w, 32, 32)
+        for t, p in ((8, 8), (4, 8), (2, 4), (1, 1)):
+            window = min(8 // t, 8 // p)
+            assert inners[0].route(1, t, p) == \
+                inners[0]._dev[1].walk[window].route
+        r = inners[0]
     assert len({id(w.counters) for w in walks}) == 1
     for w in walks:
         assert w.route in tw.WALKS
-        assert w.route == tw.tile_walk_route(w.walks)
+        if family not in ("cell", "phi_shard"):
+            assert w.route == tw.tile_walk_route(w.walks)
         assert w.unit_off[-1] == w.unit_c0.shape[0]
     assert r.route() == walks[0].route
+
+
+def test_cell_walk_route_needs_units_sorted_by_user_tile():
+    """upload_window_walks keeps a plan whose real columns visit a user
+    tile in two units on the grid walk at every width; all-padding batches
+    on another user tile (as the mega runner's padding, on user tile 0)
+    leave a sorted plan on the tile walk. Each user tile has an item tile
+    of its own, so the units are independent."""
+    gu = np.repeat(np.arange(8), 2)
+    w = np.ones((16, 4, 8))
+    cnt = tw.TileWalkCounters(8, 8, "cpu")
+    plans = {
+        "sorted": plan_of(gu, np.repeat(gu[:, None], 8, 1), w),
+        "padded": plan_of(np.r_[gu, [0, 0]],
+                          np.repeat(np.r_[gu, [0, 0]][:, None], 8, 1),
+                          np.r_[w, np.zeros((2, 4, 8))]),
+        "revisit": plan_of(np.tile(np.arange(8), 2),
+                           np.repeat(np.tile(np.arange(8), 2)[:, None], 8, 1),
+                           w)}
+    routes = {name: {k: d.route for k, d in tw.upload_window_walks(
+        p, cnt).items()} for name, p in plans.items()}
+    assert set(routes["sorted"].values()) == {"tile"}
+    assert set(routes["padded"].values()) == {"tile"}
+    assert set(routes["revisit"].values()) == {"grid"}

@@ -1,5 +1,6 @@
-// The tile walk of the window-plan kernels csrc/adreg_cells.cu and
-// csrc/sgld_cells.cu: what both walk kernels share.
+// The tile walk of the window-plan kernels csrc/cell_sgd.cu,
+// csrc/adreg_cells.cu and csrc/sgld_cells.cu and of the free-column kernel
+// csrc/free_cells.cu: what the walk kernels share.
 //
 // ops/tile_walk.py sets out the walk and builds its plan: units (maximal
 // runs of real columns on one user tile) taken by an atomic ticket in plan

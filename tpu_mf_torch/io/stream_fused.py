@@ -42,6 +42,7 @@ from tpu_mf_torch.ops.sgd_cells import (
     prepare_cells,
     upload_plan,
 )
+from tpu_mf_torch.ops.tile_walk import TileWalkCounters, upload_window_walks
 from tpu_mf_torch.train.metrics import note, span
 
 REC = np.dtype([("u", "<i4"), ("v", "<i4"), ("r", "<f4")])
@@ -154,6 +155,9 @@ class FusedStreamTrainer:
         self.n_gv = cdiv(self.nv, tile_v)
         self.plan_cache = plan_cache
         self.device = torch.device(device)
+        # the shards' tile walks hand tiles on through one set of counters
+        self.walk_counters = TileWalkCounters(self.n_gv, self.n_gu,
+                                              self.device)
         self.dim = None
         self.gb = 0.0
 
@@ -232,7 +236,8 @@ class FusedStreamTrainer:
         return plan, cached
 
     def _stage(self, item, epoch_idx: int):
-        """The device form of one shard plan of epoch ``epoch_idx``,
+        """The device form of one shard plan of epoch ``epoch_idx`` with
+        its tile walk at one column a window (the 8/8 groups), built and
         uploaded in a ``tmf.plan_upload`` span (on the Prefetcher's side
         stream), and the shard's (shard, real ratings)."""
         from tpu_mf_torch.io.stream import to_device
@@ -242,6 +247,8 @@ class FusedStreamTrainer:
                   epoch=epoch_idx):
             dplan = upload_plan(plan, self.device,
                                 put=lambda a: to_device(a, self.device))
+            dplan = dplan._replace(walk=upload_window_walks(
+                plan, self.walk_counters, windows=(1,)))
         return dplan, (s, int(plan.n_real))
 
     def pad(self, params: MFParams):

@@ -43,6 +43,7 @@ from tpu_mf_torch.ops.sgd_cells import (
     _tile_balance_map,
     cell_epoch,
 )
+from tpu_mf_torch.ops.tile_walk import TileWalkCounters
 from tpu_mf_torch.train.metrics import span
 
 # Bytes of one shard's fused item rows (tpu_mf's VMEM budget).
@@ -100,7 +101,8 @@ class PhiShardedRunner:
     The geometry defaults to ``pick_cell_geometry_large``; ``n_plans``,
     ``saturate``, ``mxu``, the groups and ``nb_round`` go to every shard's
     ``CellEpochRunner`` (``balance=False``: the maps here balance both
-    axes once, globally)."""
+    axes once, globally). The shards' runners share one set of tile-walk
+    counters, and with them one buffer of dtheta slices."""
 
     # kernel launches made through sharded runners (each one also counts
     # on CellEpochRunner.launches and cell_epoch.launches)
@@ -140,6 +142,10 @@ class PhiShardedRunner:
                 seed=seed + 101 * k, mxu=mxu, theta_groups=theta_groups,
                 phi_groups=phi_groups, n_plans=n_plans, balance=False,
                 saturate=saturate, nb_round=nb_round, device=device))
+        first = self.inners[0].plan
+        counters = TileWalkCounters(first.n_gv, first.n_gu, device)
+        for inner in self.inners:
+            inner.walk_counters = counters
         self.dim = None
         self.gb = 0.0
 
@@ -165,16 +171,17 @@ class PhiShardedRunner:
         return theta, [phi[k * S:(k + 1) * S] for k in range(self.n_shards)]
 
     def epoch(self, tables, eta: float, lam: float, gb: float,
-              epoch_idx: int = 0):
+              epoch_idx: int = 0, walk: str | None = None):
         """The K sub-epochs in shard order, in place, each in a
-        ``tmf.sub_epoch`` span; returns the tables."""
+        ``tmf.sub_epoch`` span (``walk`` forces the walk of every one);
+        returns the tables."""
         theta, phis = tables
         cuda = theta.device.type == "cuda"
         launched = cell_epoch.launches
         for k, (inner, phi_k) in enumerate(zip(self.inners, phis)):
             with span("tmf.sub_epoch", cuda, shard=k):
                 inner.epoch((theta, phi_k), eta, lam, gb,
-                            epoch_idx=epoch_idx)
+                            epoch_idx=epoch_idx, walk=walk)
         PhiShardedRunner.launches += cell_epoch.launches - launched
         return tables
 

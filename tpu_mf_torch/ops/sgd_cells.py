@@ -20,9 +20,12 @@ summed delta, scaled by min(1, cap/k) when saturating.
 The plan builders, the balance maps, the group pickers and
 ``pallas_eligible`` are ``tpu_mf``'s, bit for bit, so both packages run the
 same windows. ``cell_epoch`` runs the hand-written CUDA kernel
-(``csrc/cell_sgd.cu``, one launch per epoch) on CUDA tensors and the plain
-PyTorch version ``cell_epoch_reference`` on CPU tensors. Epochs update the
-fused tables in place.
+(``csrc/cell_sgd.cu``, one launch per epoch) on CUDA tensors, on the walk
+``ops/tile_walk.py: upload_window_walks`` routes the plan to at the
+groupings' window width (the tile walk: units of columns on one user tile,
+one thread-block cluster each, ordered by ready counters per tile; or the
+grid walk), and the plain PyTorch version ``cell_epoch_reference`` on CPU
+tensors. Epochs update the fused tables in place.
 
 Any plan of (NB, column height, 8) tile-local ids with ``gu``, ``gv`` and
 weights is a window plan: the lane-packed and slot-major families
@@ -34,7 +37,7 @@ from __future__ import annotations
 
 import ctypes
 import warnings
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -50,6 +53,13 @@ from tpu_mf_torch.ops.rows import (
     pad_params,
     row_lanes,
     split_params,
+)
+from tpu_mf_torch.ops.tile_walk import (
+    WALKS,
+    TileWalkCounters,
+    pick_walk,
+    upload_window_walks,
+    walk_launch,
 )
 from tpu_mf_torch.train.metrics import count, span
 
@@ -288,6 +298,9 @@ class DevicePlan(NamedTuple):
     ap_host: dict
     tile_u: int
     tile_v: int
+    # {window width: DeviceWalk}: the plan's tile walk (``cell_epoch``), or
+    # None where it has none (the grid walk runs it)
+    walk: Optional[dict] = None
 
 
 def upload_plan(plan: CellPlan, device: torch.device | str,
@@ -365,46 +378,24 @@ def window_reference(theta: torch.Tensor, phi: torch.Tensor,
                      mxu_pred: bool, apply, activate=None) -> None:
     """The plain window-plan walk over the plan batches [b0, b1), in place:
     per window step the gathers, the prediction (``activate`` applied to
-    t . p + gb, when given), the scatter of the deltas and counts, and at
-    each group end ``apply(rows, deltas, side)`` (side 0 the user tile, 1
-    an item tile), which returns the new rows."""
-    f32 = torch.float32
-    dev = theta.device
-    lanes = theta.shape[1]
+    t . p + gb, when given), the scatter of the deltas and counts
+    (``window_scatter``), and at each group end ``apply(rows, deltas,
+    side)`` (side 0 the user tile, 1 an item tile), which returns the new
+    rows."""
     tu, tv = plan.tile_u, plan.tile_v
-    lane = torch.arange(lanes, device=dev)
-    cnt = (lane == dim + 2).to(f32)
     tg_w, pg_w = 8 // theta_groups, 8 // phi_groups
     step = min(tg_w, pg_w)
     ap = plan.ap_host[phi_groups]
-    d_theta = torch.zeros(tu, lanes, dtype=f32, device=dev)
+    d_theta = torch.zeros(tu, theta.shape[1], dtype=torch.float32,
+                          device=theta.device)
     acc = torch.zeros_like(phi)
-
-    def rnd(x):
-        return x if work == f32 else x.to(work).to(f32)
-
     for i in range(*batches):
         gu = int(plan.gu_host[i])
         th = theta[gu * tu:(gu + 1) * tu]
         for c0 in range(0, 8, step):
             c1 = c0 + step
-            w = plan.w[i, c0:c1]
-            real = w > 0
-            ul = torch.where(real, plan.u[i, c0:c1], 0).long()
-            vl = (torch.where(real, plan.v[i, c0:c1], 0).long()
-                  + plan.gv[i, c0:c1, None].long() * tv)
-            t = rnd(th[ul])                      # (step, B/8, lanes)
-            p = rnd(phi[vl])
-            tp = rnd(t * p) if mxu_pred else t * p
-            pred = tp.sum(-1, keepdim=True) + gb_t
-            if activate is not None:
-                pred = activate(pred)
-            wk = w.unsqueeze(-1)
-            err = (eta_t * wk) * (plan.r[i, c0:c1].unsqueeze(-1) - pred)
-            d_theta.index_add_(0, ul.reshape(-1),
-                               rnd(err * p + wk * cnt).reshape(-1, lanes))
-            acc.index_add_(0, vl.reshape(-1),
-                           rnd(err * t + wk * cnt).reshape(-1, lanes))
+            window_scatter(th, phi, plan, i, c0, c1, eta_t, gb_t, dim, work,
+                           mxu_pred, d_theta, acc, activate)
             if c1 % pg_w == 0:
                 for c in range(c1 - pg_w, c1):
                     if ap[i, c]:
@@ -417,11 +408,58 @@ def window_reference(theta: torch.Tensor, phi: torch.Tensor,
                 d_theta.zero_()
 
 
+def window_scatter(th: torch.Tensor, phi: torch.Tensor, plan: DevicePlan,
+                   i: int, c0: int, c1: int, eta_t: torch.Tensor,
+                   gb_t: torch.Tensor, dim: int, work: torch.dtype,
+                   mxu_pred: bool, d_theta: torch.Tensor, acc: torch.Tensor,
+                   activate=None) -> None:
+    """The window step of the columns [c0, c1) of batch i, read from the
+    user tile ``th`` and ``phi``: each real slot's deltas and counts added
+    to ``d_theta`` (the user tile's) and ``acc`` (phi's shape), rounded to
+    the working type where the TPU kernel rounds them."""
+    f32 = torch.float32
+    lanes = th.shape[1]
+    cnt = (torch.arange(lanes, device=th.device) == dim + 2).to(f32)
+
+    def rnd(x):
+        return x if work == f32 else x.to(work).to(f32)
+
+    w = plan.w[i, c0:c1]
+    real = w > 0
+    ul = torch.where(real, plan.u[i, c0:c1], 0).long()
+    vl = (torch.where(real, plan.v[i, c0:c1], 0).long()
+          + plan.gv[i, c0:c1, None].long() * plan.tile_v)
+    t = rnd(th[ul])                      # (step, B/8, lanes)
+    p = rnd(phi[vl])
+    tp = rnd(t * p) if mxu_pred else t * p
+    pred = tp.sum(-1, keepdim=True) + gb_t
+    if activate is not None:
+        pred = activate(pred)
+    wk = w.unsqueeze(-1)
+    err = (eta_t * wk) * (plan.r[i, c0:c1].unsqueeze(-1) - pred)
+    d_theta.index_add_(0, ul.reshape(-1),
+                       rnd(err * p + wk * cnt).reshape(-1, lanes))
+    acc.index_add_(0, vl.reshape(-1),
+                   rnd(err * t + wk * cnt).reshape(-1, lanes))
+
+
 def _cell_lib() -> ctypes.CDLL:
-    lib = _build.load("cell_sgd")
+    return bind_cell_lib(_build.load("cell_sgd"))
+
+
+def bind_cell_lib(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """``lib``, a build of ``csrc/cell_sgd.cu``, with its entry points'
+    argument types set."""
     fn = lib.tmf_cell_epoch
     fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 11
                    + [ctypes.c_float] * 4 + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    fn = lib.tmf_cell_walk
+    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 11
+                   + [ctypes.c_float] * 4 + [ctypes.c_void_p] * 2)
+    fn.restype = ctypes.c_int
+    fn = lib.tmf_cell_walk_clusters
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
     fn.restype = ctypes.c_int
     return lib
 
@@ -458,16 +496,28 @@ def check_window_launch(name: str, theta: torch.Tensor, phi: torch.Tensor,
         raise ValueError(f"{name}: table or plan shapes do not match")
 
 
+def cell_walk(plan: DevicePlan, theta_groups: int, phi_groups: int):
+    """The plan's tile walk at the window width of the groups (a
+    ``DeviceWalk``), or None where the plan has none at that width."""
+    if plan.walk is None:
+        return None
+    return plan.walk.get(min(8 // theta_groups, 8 // phi_groups))
+
+
 def cell_epoch(theta: torch.Tensor, phi: torch.Tensor, plan: DevicePlan,
                eta: float, lam: float, gb: float, cap: float, dim: int,
                theta_groups: int, phi_groups: int,
                work: torch.dtype = torch.bfloat16, saturate: bool = True,
-               mxu_pred: bool = True) -> None:
+               mxu_pred: bool = True, walk: str | None = None) -> None:
     """One gen-1 epoch, in place on the fused (theta_ext, phi_ext).
 
     CPU tensors take the plain version; CUDA tensors launch the
-    ``csrc/cell_sgd.cu`` kernel (one cooperative launch per epoch) or
-    raise."""
+    ``csrc/cell_sgd.cu`` kernel (one launch per epoch) or raise: on the
+    tile walk of the plan's walk at the groups' window width where its
+    route or ``walk`` ("tile" or "grid") says so, else on the grid walk
+    (a plan without a walk takes the grid walk). The launch counts on
+    ``cell_epoch.walks`` and as ``walk_tile`` / ``walk_grid`` on the
+    innermost span."""
     if theta_groups not in GROUPS or phi_groups not in GROUPS:
         raise ValueError(f"groups must divide the 8 columns, got "
                          f"{theta_groups}/{phi_groups}")
@@ -481,30 +531,58 @@ def cell_epoch(theta: torch.Tensor, phi: torch.Tensor, plan: DevicePlan,
     if theta.device.type != "cuda":
         raise ValueError(f"cell_epoch: no kernel for device {theta.device}")
     check_window_launch("cell_epoch", theta, phi, plan, phi_groups, dim)
+    dwalk = cell_walk(plan, theta_groups, phi_groups)
+    if dwalk is None:
+        if walk not in (None, "grid"):
+            raise ValueError(f"cell_epoch: the plan has no tile walk, "
+                             f"{walk!r} asked")
+        route = "grid"
+    else:
+        route = pick_walk(dwalk, walk)
     nb, _, sub = plan.u.shape
     lanes = theta.shape[1]
-    ap = plan.ap[phi_groups]
-    d_theta = torch.zeros(plan.tile_u, lanes, dtype=torch.float32,
-                          device=theta.device)
     acc = torch.zeros_like(phi)
     lib = _cell_lib()
     with torch.cuda.device(theta.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.tmf_cell_epoch(
-            theta.data_ptr(), phi.data_ptr(), plan.u.data_ptr(),
-            plan.v.data_ptr(), plan.r.data_ptr(), plan.w.data_ptr(),
-            plan.gu.data_ptr(), plan.gv.data_ptr(), ap.data_ptr(),
-            d_theta.data_ptr(), acc.data_ptr(),
-            nb, sub, plan.tile_u, plan.tile_v, lanes, dim, theta_groups,
-            phi_groups, WORK[work], int(mxu_pred), int(saturate),
-            eta, lam, gb, cap, stream)
+        if route == "grid":
+            d_theta = torch.zeros(plan.tile_u, lanes, dtype=torch.float32,
+                                  device=theta.device)
+            rc = lib.tmf_cell_epoch(
+                theta.data_ptr(), phi.data_ptr(), plan.u.data_ptr(),
+                plan.v.data_ptr(), plan.r.data_ptr(), plan.w.data_ptr(),
+                plan.gu.data_ptr(), plan.gv.data_ptr(),
+                plan.ap[phi_groups].data_ptr(), d_theta.data_ptr(),
+                acc.data_ptr(), nb, sub, plan.tile_u, plan.tile_v, lanes,
+                dim, theta_groups, phi_groups, WORK[work], int(mxu_pred),
+                int(saturate), eta, lam, gb, cap, stream)
+        else:
+            key = (WORK[work], int(mxu_pred and work != torch.float32))
+            launch, _ = walk_launch(
+                dwalk, 0, nb, phi_groups, ("cell", *key),
+                lambda c, out: lib.tmf_cell_walk_clusters(*key, c, out),
+                plan.tile_u, lanes, theta.device, stride=dim + 3)
+            rc = lib.tmf_cell_walk(
+                theta.data_ptr(), phi.data_ptr(), plan.u.data_ptr(),
+                plan.v.data_ptr(), plan.r.data_ptr(), plan.w.data_ptr(),
+                plan.gv.data_ptr(), acc.data_ptr(), nb, sub, plan.tile_u,
+                plan.tile_v, lanes, dim, theta_groups, phi_groups,
+                WORK[work], int(mxu_pred), int(saturate), eta, lam, gb, cap,
+                ctypes.addressof(launch), stream)
     if rc != 0:
         raise RuntimeError(f"cell_sgd kernel launch failed: CUDA error {rc}")
+    if route == "tile":
+        dwalk.counters.advance(launch.n_units, launch.n_clusters)
     cell_epoch.launches += 1
+    cell_epoch.walks[route] += 1
     count("launches")
+    count(WALK_KEYS[route])
 
 
 cell_epoch.launches = 0  # kernel launches (CUDA calls), not CPU runs
+cell_epoch.walks = dict.fromkeys(WALKS, 0)  # the launches by walk
+# the counter of each walk on the innermost span
+WALK_KEYS = {w: f"walk_{w}" for w in WALKS}
 
 
 class WindowRunner:
@@ -524,7 +602,12 @@ class WindowRunner:
     - ``map_u`` / ``map_v``: new-of-old id relabelings the plans were built
       on; ``pad`` / ``trim`` invert them, so training on them is exact.
     - Plans reach the device at ``materialize`` (``pad`` calls it), never
-      while a schedule only probes a runner's statistics."""
+      while a schedule only probes a runner's statistics, each with its
+      tile walk at every window width (``upload_window_walks``) on one set
+      of hand-off counters (``walk_counters``; a runner that shares its
+      device with others may be handed theirs before ``materialize``).
+      ``epoch`` runs a plan on the walk its route picks for the groupings'
+      window width (``route``), or on the one ``walk`` forces."""
 
     kind = "blocked"  # the family's name in the envelope warning
     # kernel launches made by the family's runners; each family keeps its
@@ -560,6 +643,7 @@ class WindowRunner:
             self._vdup_max = {g: max(s[g] for s in stats) for g in GROUPS}
         self.device = torch.device(device)
         self._dev: list = []
+        self.walk_counters: Optional[TileWalkCounters] = None
         self.dim = None
         self.gb = 0.0
 
@@ -577,9 +661,22 @@ class WindowRunner:
         (once)."""
         if not self._dev:
             with span("tmf.plan_upload"):
-                self._dev = [upload_plan(self._window_plan(p), self.device)
-                             for p in self.plans]
+                plans = [self._window_plan(p) for p in self.plans]
+                if self.walk_counters is None:
+                    self.walk_counters = TileWalkCounters(
+                        plans[0].n_gv, plans[0].n_gu, self.device)
+                self._dev = [upload_plan(p, self.device)._replace(
+                    walk=upload_window_walks(p, self.walk_counters))
+                    for p in plans]
         return self
+
+    def route(self, epoch_idx: int = 0, theta_groups: int = 8,
+              phi_groups: int = 8) -> str:
+        """The walk the kernel takes on plan ``epoch_idx`` at these
+        groupings (``upload_window_walks``)."""
+        plan = self.materialize()._dev[epoch_idx % len(self._dev)]
+        dwalk = cell_walk(plan, theta_groups, phi_groups)
+        return "grid" if dwalk is None else dwalk.route
 
     def _warn(self, side: str, eta: float, dups: int) -> None:
         if not self.saturate:
@@ -604,16 +701,18 @@ class WindowRunner:
         return self._pick(self.phi_groups, self._vdup_max, "phi", eta)
 
     def epoch(self, tables, eta: float, lam: float, gb: float,
-              epoch_idx: int = 0):
+              epoch_idx: int = 0, walk: str | None = None):
         """One epoch, in place on the fused tables; returns them. The
         grouping it took counts as ``groups_<theta>x<phi>`` on the
-        innermost span."""
+        innermost span; ``walk`` forces "tile" or "grid" (default: the
+        plan's route)."""
         cap = max(1.0, 0.2 / max(eta, 1e-9))
         plan = self.materialize()._dev[epoch_idx % len(self._dev)]
         launched = cell_epoch.launches
         tg, pg = self.pick_theta_groups(eta), self.pick_phi_groups(eta)
         cell_epoch(tables[0], tables[1], plan, eta, lam, gb, cap, self.dim,
-                   tg, pg, self.work_dtype, self.saturate, self.mxu_pred)
+                   tg, pg, self.work_dtype, self.saturate, self.mxu_pred,
+                   walk)
         type(self).launches += cell_epoch.launches - launched
         count(GROUP_KEYS[tg][pg])
         return tables

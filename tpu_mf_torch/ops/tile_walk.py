@@ -1,7 +1,7 @@
-"""The tile walk of the window-plan kernels ``csrc/adreg_cells.cu`` and
-``csrc/sgld_cells.cu`` and of the free-column kernel ``csrc/free_cells.cu``:
-the host planner, the hand-off counters and the route between the tile walk
-and the grid walk.
+"""The tile walk of the window-plan kernels ``csrc/cell_sgd.cu``,
+``csrc/adreg_cells.cu`` and ``csrc/sgld_cells.cu`` and of the free-column
+kernel ``csrc/free_cells.cu``: the host planner, the hand-off counters and
+the route between the tile walk and the grid walk.
 
 A window plan's batches are sorted by user tile, and one window (a step of
 ``window`` columns of one batch) reads and writes only its user tile and
@@ -34,10 +34,13 @@ launch advances by its units plus its clusters (each cluster draws one
 ticket past the last unit); both numbers wrap unsigned.
 
 ``plan_tile_walk`` builds a plan's walk once per plan and launch range (at
-``materialize``), ``cluster_size`` sizes its clusters by the slots of a
-window (``free_cluster_size`` those of a free plan by a model of the walk's
-time), ``tile_walk_route`` picks the walk by a model of both walks' time,
-and ``TileWalkCounters`` numbers the launches on one device.
+``materialize``; ``plan_tile_walks`` at several window widths on one set of
+units, as ``upload_window_walks`` does for ``csrc/cell_sgd.cu``, whose
+window width follows the groupings eta picks), ``cluster_size`` sizes its
+clusters by the slots of a window (``free_cluster_size`` those of a free
+plan, ``cell_cluster_size`` those of ``csrc/cell_sgd.cu``, by a model of
+the walk's time), ``tile_walk_route`` picks the walk by a model of both
+walks' time, and ``TileWalkCounters`` numbers the launches on one device.
 
 Windows of a free plan may span two units (a user tile's run ends inside a
 window). That is exact: a unit applies a tile where its flag
@@ -56,7 +59,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-# the walks of csrc/adreg_cells.cu and csrc/sgld_cells.cu
+# the walks of the window-plan and free-column kernels
 WALKS = ("tile", "grid")
 # blocks per thread-block cluster: one unit's window steps spread over this
 # many SMs. 8 (the portable most; 16 clusters fit an H100 at once) where a
@@ -78,6 +81,9 @@ TILE_STEP_ROUNDS, GRID_STEP_ROUNDS = 7, 3
 # a round, PERF.md)
 FREE_CLUSTERS = (1, 2, 4, 8)
 FREE_STEP_ROUNDS = {1: 1, 2: 6, 4: 6, 8: 7}
+# csrc/cell_sgd.cu's cluster sizes (cell_cluster_size); 2 is left out: at
+# the Yahoo tiles 66 clusters' dtheta slices would take 71 MB
+CELL_CLUSTERS = (4, 8, 16)
 
 
 class TileWalk(NamedTuple):
@@ -128,8 +134,32 @@ def plan_tile_walk(plan, b0: int, b1: int, window: int = 1) -> TileWalk:
     of that width): units, per unit and item tile the first and last
     touching column with the wait value and its release, and the critical
     path in windows."""
-    if window not in (1, 2, 4, 8):
-        raise ValueError(f"window must divide the 8 columns, got {window}")
+    return plan_tile_walks(plan, b0, b1, (window,))[window]
+
+
+def _rank_within(keys: np.ndarray) -> np.ndarray:
+    """(n,) int32: for each entry, how many earlier entries hold its key."""
+    order = np.argsort(keys, kind="stable")
+    sk = keys[order]
+    idx = np.arange(len(keys))
+    start = np.maximum.accumulate(
+        np.where(np.r_[True, sk[1:] != sk[:-1]], idx, 0)) if len(keys) \
+        else idx
+    out = np.empty(len(keys), np.int32)
+    out[order] = idx - start
+    return out
+
+
+def plan_tile_walks(plan, b0: int, b1: int,
+                    windows=(1, 2, 4, 8)) -> dict:
+    """{window: TileWalk} of the plan batches [b0, b1) at each width of
+    ``windows`` (``plan_tile_walk``'s arguments): the units and the column
+    arrays are built once and shared by every width; only the window count
+    and the critical path depend on the width."""
+    for window in windows:
+        if window not in (1, 2, 4, 8):
+            raise ValueError(
+                f"window must divide the 8 columns, got {window}")
     nb = plan.gu.shape[0]
     if not 0 <= b0 <= b1 <= nb:
         raise ValueError(f"batches [{b0}, {b1}) outside the plan's {nb}")
@@ -141,60 +171,77 @@ def plan_tile_walk(plan, b0: int, b1: int, window: int = 1) -> TileWalk:
     cols = np.flatnonzero(real[b0 * 8:b1 * 8]) + b0 * 8
     gu_col = column_user_tiles(plan.gu)[cols]
     # units: maximal runs of consecutive real columns on one user tile
-    starts = np.flatnonzero(np.r_[True, gu_col[1:] != gu_col[:-1]]) \
-        if len(cols) else np.zeros(0, np.int64)
+    new = np.r_[True, gu_col[1:] != gu_col[:-1]][:len(cols)]
+    starts = np.flatnonzero(new)
+    unit_of = np.cumsum(new) - 1  # the unit of each real column
     ends = np.r_[starts[1:], len(cols)].astype(np.int64)
-    unit_gu = gu_col[starts] if len(cols) else np.zeros(0, np.int64)
-    unit_c0 = cols[starts] if len(cols) else np.zeros(0, np.int64)
-    unit_c1 = cols[ends - 1] + 1 if len(cols) else np.zeros(0, np.int64)
-    units_on_u: dict = {}
-    units_on_v: dict = {}
-    unit_wait = np.zeros(len(starts), np.int32)
-    # the critical path: depth of a window = 1 + the depths it waits on
-    # (the unit's previous window, the release windows of the units before
-    # it on its user tile and on each item tile it first touches)
-    rel_u: dict = {}  # user tile -> depth of the last release
-    rel_v: dict = {}  # item tile -> depth of the last release
-    crit = n_windows = 0
-    for n, (s, e) in enumerate(zip(starts, ends)):
-        g = int(unit_gu[n])
-        unit_wait[n] = units_on_u.get(g, 0)
-        units_on_u[g] = unit_wait[n] + 1
-        ucols = cols[s:e]
-        tiles = gv[ucols]
-        first: dict = {}
-        last: dict = {}
-        for c, v in zip(ucols.tolist(), tiles.tolist()):
-            first.setdefault(v, c)
-            last[v] = c
-        for v, c in first.items():
-            col_wait[c] = units_on_v.get(v, 0)
-        for v, c in last.items():
-            col_rel[c] = col_wait[first[v]] + 1
-            units_on_v[v] = col_wait[first[v]] + 1
-        # windows of the unit, in order; a window waits on the unit's
-        # previous window and on the tiles it touches first
-        depth = rel_u.get(g, 0)
-        win = ucols // window
-        wstart = np.flatnonzero(np.r_[True, win[1:] != win[:-1]])
-        wend = np.r_[wstart[1:], len(ucols)]
-        for a, b in zip(wstart.tolist(), wend.tolist()):
-            wt = set(tiles[a:b].tolist())
-            dep = depth
-            for v in wt:
-                if first[v] in ucols[a:b]:
-                    dep = max(dep, rel_v.get(v, 0))
-            depth = dep + 1
-            for v in wt:
-                if last[v] in ucols[a:b]:
-                    rel_v[v] = depth
-        rel_u[g] = depth
-        n_windows += len(wstart)
+    unit_gu = gu_col[starts]
+    unit_c0 = cols[starts]
+    unit_c1 = cols[ends - 1] + 1 if len(cols) else cols
+    unit_wait = _rank_within(unit_gu)  # earlier units on its user tile
+    # (unit, item tile) pairs, ordered by unit: the first and last column
+    # of each; its wait value counts the earlier units on the tile
+    tiles = gv[cols]
+    key = unit_of * (int(tiles.max(initial=0)) + 1) + tiles
+    _, first = np.unique(key, return_index=True)
+    _, rlast = np.unique(key[::-1], return_index=True)
+    last = len(key) - 1 - rlast
+    pair_tile = tiles[first]
+    wait = _rank_within(pair_tile)
+    col_wait[cols[first]] = wait
+    col_rel[cols[last]] = wait + 1
+    arrays = (unit_c0.astype(np.int32), unit_c1.astype(np.int32),
+              unit_gu.astype(np.int32), unit_wait, col_tile, col_wait,
+              col_rel)
+    out = {}
+    for window in windows:
+        n_windows, crit = _critical_path(cols, unit_of, unit_gu, first, last,
+                                         pair_tile, window)
+        out[window] = TileWalk(*arrays, window, window * plan.w.shape[1],
+                               n_windows, crit, b0, b1)
+    return out
+
+
+def _critical_path(cols, unit_of, unit_gu, first, last, pair_tile,
+                   window: int):
+    """(windows, windows on the critical path) of a walk at ``window``
+    columns a window step: the depth of a window is 1 + the most of the
+    depths it waits on (the unit's previous window, or at the unit's start
+    the last release of its user tile; the last release of each item tile
+    it touches first)."""
+    if not len(cols):
+        return 0, 0
+    win = cols // window
+    wnew = np.r_[True, (unit_of[1:] != unit_of[:-1]) | (win[1:] != win[:-1])]
+    win_id = np.cumsum(wnew) - 1  # the window of each real column
+    n_windows = int(win_id[-1]) + 1
+    w_unit = unit_of[wnew].tolist()
+    gu = unit_gu.tolist()
+    # the item tiles first touched in each window, and those released
+    fw, lw = win_id[first], win_id[last]
+    fo, lo = np.argsort(fw, kind="stable"), np.argsort(lw, kind="stable")
+    fw, ft = fw[fo].tolist() + [n_windows], pair_tile[fo].tolist()
+    lw, lt = lw[lo].tolist() + [n_windows], pair_tile[lo].tolist()
+    rel_v = [0] * (int(pair_tile.max()) + 1)
+    rel_u: dict = {}
+    fi = li = crit = depth = 0
+    unit = -1
+    for w in range(n_windows):
+        if w_unit[w] != unit:
+            if unit >= 0:
+                rel_u[gu[unit]] = depth
+            unit = w_unit[w]
+            depth = rel_u.get(gu[unit], 0)
+        dep = depth
+        while fw[fi] == w:
+            dep = max(dep, rel_v[ft[fi]])
+            fi += 1
+        depth = dep + 1
+        while lw[li] == w:
+            rel_v[lt[li]] = depth
+            li += 1
         crit = max(crit, depth)
-    return TileWalk(unit_c0.astype(np.int32), unit_c1.astype(np.int32),
-                    unit_gu.astype(np.int32), unit_wait, col_tile, col_wait,
-                    col_rel, window, window * plan.w.shape[1], n_windows,
-                    crit, b0, b1)
+    return n_windows, crit
 
 
 def walk_user_tiles(walk: TileWalk) -> np.ndarray:
@@ -272,25 +319,29 @@ def walk_steps(walk: TileWalk, cluster: int, sms: int = H100_SMS) -> int:
 
 def tile_walk_route(walks, cluster: int | None = None,
                     sms: int = H100_SMS, fixed: int = TILE_STEP_ROUNDS,
-                    rows: int = 0) -> str:
+                    rows: int = 0, grid_windows: int | None = None,
+                    grid_rows: int = 0) -> str:
     """The walk a plan takes on the card, by a model of each walk's time
     in rounds of a warp's slots: the tile walk runs ``walk_steps`` windows
     one after another, each a fixed ``fixed`` rounds plus its slots (and
     ``rows`` applied rows) over the 32 warps of each of a cluster's
-    ``cluster`` blocks; the grid walk runs every window, each
-    ``GRID_STEP_ROUNDS`` plus its slots over one block of 32 warps on each
-    of ``sms`` SMs. "tile" where the first is the shorter, else "grid";
-    summed over the launch ranges of ``walks`` (a ``TileWalk`` or a list of
-    them). At ML-10M shape the gen-1 plans' chains shrink 8-16x and the
-    tile walk wins ~4.6x; a slot SGLD window of 28,672 slots keeps a
-    cluster of 16 busy for 56 rounds, and the grid walk wins. ``cluster``
-    defaults to ``cluster_size``."""
+    ``cluster`` blocks; the grid walk runs every window (``grid_windows``
+    where it also steps through the windows that hold no real slot), each
+    ``GRID_STEP_ROUNDS`` plus its slots (and ``grid_rows`` applied rows)
+    over one block of 32 warps on each of ``sms`` SMs. "tile" where the
+    first is the shorter, else "grid"; summed over the launch ranges of
+    ``walks`` (a ``TileWalk`` or a list of them). At ML-10M shape the
+    gen-1 plans' chains shrink 8-16x and the tile walk wins ~4.6x; a slot
+    SGLD window of 28,672 slots keeps a cluster of 16 busy for 56 rounds,
+    and the grid walk wins. ``cluster`` defaults to ``cluster_size``."""
     if isinstance(walks, TileWalk):
         walks = [walks]
     cluster = cluster or cluster_size(walks)
     tile = sum(tile_rounds(w, cluster, sms, fixed, rows) for w in walks)
-    grid = sum(w.n_windows * (GRID_STEP_ROUNDS + -(-w.slots // (32 * sms)))
-               for w in walks)
+    warps = 32 * sms
+    grid = sum((w.n_windows if grid_windows is None else grid_windows)
+               * (GRID_STEP_ROUNDS + -(-w.slots // warps)
+                  + -(-grid_rows // warps)) for w in walks)
     return "tile" if tile < grid else "grid"
 
 
@@ -348,6 +399,12 @@ class DeviceWalk(NamedTuple):
         raise ValueError(f"no tile walk for batches [{b0}, {b1})")
 
 
+def device_sms(device: torch.device) -> int:
+    """The SMs of ``device``: a CUDA card's, an H100's on the CPU."""
+    return (torch.cuda.get_device_properties(device).multi_processor_count
+            if device.type == "cuda" else H100_SMS)
+
+
 def upload_walk(walks, counters: "TileWalkCounters", tap: dict | None = None,
                 nz=None, free_rows: int | None = None) -> DeviceWalk:
     """The ``TileWalk``s of one plan (a list, or one) on the device of
@@ -357,8 +414,7 @@ def upload_walk(walks, counters: "TileWalkCounters", tap: dict | None = None,
     window steps apply that many rows: its user-side flags (``tap_u``) are
     uploaded too, and ``free_cluster_size`` sizes its clusters."""
     device = counters.counters.device
-    sms = (torch.cuda.get_device_properties(device).multi_processor_count
-           if device.type == "cuda" else H100_SMS)
+    sms = device_sms(device)
     if isinstance(walks, TileWalk):
         walks = [walks]
     first = walks[0]
@@ -394,6 +450,62 @@ def upload_walk(walks, counters: "TileWalkCounters", tap: dict | None = None,
         [int(x) for x in off], cluster, route, counters, tap_u)
 
 
+def cell_cluster_size(walk: TileWalk, rows: int,
+                      sms: int = H100_SMS) -> int:
+    """The blocks of a cluster for ``csrc/cell_sgd.cu``'s tile walk: the
+    size of ``CELL_CLUSTERS`` whose modelled time (``tile_rounds`` at
+    ``TILE_STEP_ROUNDS``, ``rows`` applied rows a step) is the least. On
+    the H100 the model picked the fastest size of 4, 8 and 16 on each plan
+    timed: clusters of 4 on gen-1's 8/8 windows at ML-10M (more clusters
+    for a plan whose windows, not its chain, bound it), 8 on a Yahoo
+    shard's 8/8 windows, 16 on its wider ones (PERF.md)."""
+    return min(CELL_CLUSTERS, key=lambda c: tile_rounds(
+        walk, c, sms, TILE_STEP_ROUNDS, rows))
+
+
+def cell_walk_rows(tile_u: int, tile_v: int, sub: int,
+                   window: int) -> tuple:
+    """(tile walk, grid walk) rows one window step of ``window`` columns
+    of ``sub`` slots applies in ``csrc/cell_sgd.cu`` at equal groupings:
+    the tile walk applies the user rows and each column's item rows its
+    slots touched, at most a tile of each (``cell_walk_kernel`` claims
+    them slot by slot where a group holds fewer slots than the tile has
+    rows); the grid walk every row of the user tile and of each item
+    tile."""
+    return (min(tile_u, window * sub) + window * min(tile_v, sub),
+            tile_u + window * tile_v)
+
+
+def upload_window_walks(plan, counters: "TileWalkCounters",
+                        windows=(1, 2, 4, 8)) -> dict:
+    """{window: DeviceWalk} of a window plan (``CellPlan``, host arrays)
+    for ``csrc/cell_sgd.cu``'s tile walk at each window width of
+    ``windows`` (columns; a width left out runs the grid walk): the units,
+    the column arrays and the apply flags are built and uploaded once
+    (``plan_tile_walks``); each width has its own critical path, cluster
+    size (``cell_cluster_size``) and route (``tile_walk_route`` over the
+    grid walk's every window, with the rows terms of ``cell_walk_rows``).
+    A plan whose real columns are not sorted by user tile (a user tile in
+    more than one unit) keeps the grid walk at every width."""
+    nb, sub = plan.gu.shape[0], plan.w.shape[1]
+    walks = plan_tile_walks(plan, 0, nb, windows)
+    first = walks[windows[0]]
+    base = upload_walk(first, counters)
+    sms = device_sms(counters.counters.device)
+    sorted_u = bool((np.diff(first.unit_gu.astype(np.int64)) > 0).all())
+    out = {}
+    for window, walk in walks.items():
+        rows, grid_rows = cell_walk_rows(plan.tile_u, plan.tile_v, sub,
+                                         window)
+        cluster = cell_cluster_size(walk, rows, sms)
+        route = tile_walk_route(walk, cluster, sms, rows=rows,
+                                grid_windows=nb * 8 // window,
+                                grid_rows=grid_rows) if sorted_u else "grid"
+        out[window] = base._replace(walks=[walk], cluster=cluster,
+                                    route=route)
+    return out
+
+
 class TileWalkCounters:
     """The tile walk's hand-off state on one device: a 64-bit ready counter
     per tile (``n_gv`` item tiles, then ``n_gu`` user tiles) and the unit
@@ -409,6 +521,19 @@ class TileWalkCounters:
                                     device=device)
         self.gen = 1
         self.ticket_base = 0
+        self._slices: Optional[torch.Tensor] = None
+
+    def slices(self, rows: int, stride: int) -> torch.Tensor:
+        """A zero (rows, stride) float32 view of the dtheta slices kept
+        with the counters, for a walk kernel that leaves its slices zero
+        (``csrc/cell_sgd.cu``): one buffer for every plan and launch on
+        these counters, grown (zero) when a launch needs more."""
+        need = rows * stride
+        if self._slices is None or self._slices.numel() < need:
+            self._slices = None
+            self._slices = torch.zeros(need, dtype=torch.float32,
+                                       device=self.counters.device)
+        return self._slices[:need].view(rows, stride)
 
     def advance(self, n_units: int, n_clusters: int) -> None:
         self.gen = (self.gen + 1) % 2 ** 32
@@ -455,13 +580,16 @@ def pick_walk(walk: DeviceWalk, forced: str | None) -> str:
 
 
 def walk_launch(walk: DeviceWalk, b0: int, b1: int, tap_groups, key, query,
-                tile_u: int, lanes: int, device: torch.device):
+                tile_u: int, lanes: int, device: torch.device,
+                stride: int | None = None):
     """(the ``WalkLaunch`` of the range [b0, b1) of ``walk``, the tensors
     it points into): at most the clusters the card keeps resident
     (``resident_clusters(key, walk.cluster, query)``) and no more than the
     range's units, each with a zeroed tile_u x lanes dtheta slice on
-    ``device``, where the walk's counters must lie. ``tap_groups`` picks
-    the apply flags (None: none)."""
+    ``device``, where the walk's counters must lie; with ``stride``, slices
+    of tile_u x stride from the counters' own buffer
+    (``TileWalkCounters.slices``), which the kernel leaves zero.
+    ``tap_groups`` picks the apply flags (None: none)."""
     if walk.counters.counters.device != device:
         raise ValueError(f"tile walk: the counters are on "
                          f"{walk.counters.counters.device}, the tables on "
@@ -471,8 +599,11 @@ def walk_launch(walk: DeviceWalk, b0: int, b1: int, tap_groups, key, query,
     lo, n_units = walk.unit_off[s], walk.walks[s].n_units
     n_clusters = max(1, min(resident, n_units))
     cnt = walk.counters
-    dtheta = torch.zeros(n_clusters * tile_u, lanes, dtype=torch.float32,
-                         device=cnt.counters.device)
+    if stride is None:
+        dtheta = torch.zeros(n_clusters * tile_u, lanes, dtype=torch.float32,
+                             device=cnt.counters.device)
+    else:
+        dtheta = cnt.slices(n_clusters * tile_u, stride)
     base = cnt.counters.data_ptr()
 
     def at(t, off=0):
