@@ -1,10 +1,12 @@
 """The comparison that decides ``correct`` for a training cell.
 
-A job is the trainer's epochs 1 to E (the traffic's ``job_epochs``). What
-the program's jobs produced is held against the plain reference
-(``reference.py``) trained from the same ratings and initial tables for
-one whole job, so every grouping of columns the job's epochs pick is in
-the comparison:
+A job is the trainer's epochs (or rounds) 1 to E (the traffic's
+``job_epochs``). What the program's jobs produced is held against the
+plain reference of the cell's driver (``algs/<alg>.py: compare``;
+``reference.py`` for SGD, run by ``reference_run``, so every grouping of
+columns the job's epochs pick is in the comparison; ``reference_dpmf.py``
+for DP-SGLD, which adds its own numbers) trained from the same ratings
+and initial tables for one whole job:
 
 - ``loss_gap``: the largest gap, over every job of the run (warm-up and
   timed) and every epoch of it, between the test RMSE the program logged
@@ -95,11 +97,12 @@ def numbers(snap1: dict, final: dict, final_rmse: float, logged: list,
     }
 
 
-def judge(values: dict, limits: dict | None) -> tuple[bool, dict]:
-    """(correct, {name: {"value", "limit"}}); a number without a limit, or
-    not finite, is not correct."""
+def judge(values: dict, limits: dict | None, names=NUMBERS
+          ) -> tuple[bool, dict]:
+    """(correct, {name: {"value", "limit"}}) over the numbers ``names``; a
+    number without a value or a limit, or not finite, is not correct."""
     out, ok = {}, True
-    for name in NUMBERS:
+    for name in names:
         v = values.get(name)
         lim = None if limits is None else limits.get(name, {}).get("limit")
         out[name] = {"value": v, "limit": lim}

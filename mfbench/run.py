@@ -5,15 +5,15 @@
 
 From the root of a checkout on a machine with the card(s) the cell asks
 for. The run makes its ratings and initial tables from ``--seed`` on the
-device and trains them as ``tpu_mf_torch.train.loop.train_mf`` does: the
-schedule's runners (``_mf_runner_schedule``, plans built and uploaded
-once) drive jobs of the traffic's ``job_epochs`` epochs (the reference
-trainer's ``--iter 15``) through the epoch loop ``_run_schedule``, each
+device and trains them as the program's trainer for the traffic's
+``alg`` does, through that trainer's driver (``algs/<alg>.py``): the
+driver builds the trainer's runners once (plans built and uploaded) and
+runs jobs of the traffic's ``job_epochs`` epochs or rounds on them, each
 job from the seed's initial tables, with a ``log`` callback that the
 harness times on the host:
 
 - set-up: process start to the window's opening (imports, kernel load
-  or build, data generation, the schedule and its plan builds, and the
+  or build, data generation, the runners and their plan builds, and the
   warm-up: at least ``warmup_jobs`` jobs and ``warmup_seconds`` after
   the first epoch line);
 - the window: whole jobs from the warm-up's end to the first job end at
@@ -25,11 +25,11 @@ Every job runs epochs 1 to ``job_epochs`` at the trainer's step sizes, so
 the window times the epochs a user's job runs, whatever its length.
 Then the run reads the device's peak memory, frees the program's state,
 and holds what the jobs produced (the test RMSE every job logged, the
-first warm-up job's tables after epoch 1 and the last timed job's final
-tables) against the plain reference trained for a whole job
-(``check.py``). With ``--trace 1`` the window runs under
-``torch.profiler`` and the line carries the per-layer metrics and a
-breakdown instead of the end-to-end ones.
+first warm-up job's tables after epoch 1, the last timed job's final
+tables, and what else the driver kept) against the plain reference
+trained for a whole job (the driver's ``compare``). With ``--trace 1``
+the window runs under ``torch.profiler`` and the line carries the
+per-layer metrics and a breakdown instead of the end-to-end ones.
 
 Exits non-zero, printing no result, without a CUDA device (or fewer than
 the cell asks for), without the program, or if JAX or the JAX package
@@ -45,7 +45,6 @@ import gc  # noqa: E402
 import json  # noqa: E402
 import math  # noqa: E402
 import os  # noqa: E402
-import re  # noqa: E402
 import sys  # noqa: E402
 from dataclasses import dataclass, field  # noqa: E402
 from pathlib import Path  # noqa: E402
@@ -57,7 +56,6 @@ if str(ROOT) not in sys.path:
 from mfbench.trace import MARK_CLOSE, MARK_EPOCH, MARK_OPEN  # noqa: E402
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "tpu_mf")
-ITER_LINE = re.compile(r"^iter#(\d+)\t([0-9.eE+-]+)(?:\ttRMSE=(\S+))?")
 
 
 def forbidden_modules() -> list:
@@ -78,32 +76,20 @@ def setup_env(root: Path = ROOT) -> None:
     os.environ["USE_JAX"] = "0"
 
 
-def loop_tables(frame) -> dict:
-    """The training loop's tables on the device, read from the frame that
-    called the log callback (or one above it): its ``runner`` and the
-    ``tables`` it trains, as ``runner.trim`` gives them for the epoch's
-    eval."""
-    f = frame
-    while f is not None:
-        loc = f.f_locals
-        if "runner" in loc and "tables" in loc and hasattr(loc["runner"],
-                                                          "trim"):
-            p = loc["runner"].trim(loc["tables"])
-            return {k: getattr(p, k).detach()
-                    for k in ("theta", "phi", "bu", "bv")}
-        f = f.f_back
-    raise LookupError("no training-loop frame holds runner and tables")
-
-
 @dataclass
 class Window:
     """The log callback's and the job loop's state: every job's epoch
-    lines, the warm-up, the window, and the first job's epoch-1 tables.
-    Job 0 is the first warm-up job."""
+    lines (read by the driver's ``parse``), the warm-up, the window, and
+    the first job's epoch-1 tables (``snap1``: from ``snap``, called with
+    the log callback's caller's frame at job 0's epoch-1 line, or set by
+    the driver's job). ``rec`` keeps what the driver's jobs record, one
+    entry a job. Job 0 is the first warm-up job."""
 
     seconds: float
     warmup_jobs: int
     warmup_seconds: float
+    parse: object = None
+    snap: object = None
     profile: bool = False
     job: int = 0                                # the job now running
     lines: list = field(default_factory=list)   # per job {epoch: (t, rmse)}
@@ -114,27 +100,24 @@ class Window:
     open_job: int = 0
     close_job: int = 0
     job_ends: list = field(default_factory=list)
+    rec: list = field(default_factory=list)
     prof: object = None
 
     def log(self, line: str) -> None:
         t = time.perf_counter()
-        m = ITER_LINE.match(line)
-        if m is None:             # the schedule's "# ..." lines
+        got = self.parse(line)
+        if got is None:           # not an epoch line
             return
-        ep = int(m.group(1))
+        ep, elapsed, rmse = got
         if self.prof is not None:
             self._mark(MARK_EPOCH)
         while len(self.lines) <= self.job:
             self.lines.append({})
-        rmse = None if m.group(3) is None else float(m.group(3))
-        self.lines[self.job][ep] = (t, float(m.group(2)), rmse)
+        self.lines[self.job][ep] = (t, elapsed, rmse)
         if self.t_first is None:
             self.t_first = t
-        if self.job == 0 and ep == 1:
-            tabs = loop_tables(sys._getframe(1))
-            self.snap1 = {k: x.to("cpu", copy=True).float()
-                          for k, x in tabs.items()}
-            del tabs
+        if self.job == 0 and ep == 1 and self.snap is not None:
+            self.snap1 = self.snap(sys._getframe(1))
 
     def job_done(self) -> bool:
         """Mark the end of a job; True once it closes the window. The
@@ -198,68 +181,6 @@ class Context:
     trace_window_s: float = 0.0
 
 
-def train_config(spec: dict, seed: int, gb: float, iters: int):
-    from tpu_mf_torch.config import TrainConfig
-
-    cfg, tr = spec["config"], spec["traffic"]
-    return TrainConfig(alg=tr["alg"], dim=int(cfg["dim"]), dtype=cfg["dtype"],
-                       nu=int(cfg["nu"]), nv=int(cfg["nv"]), gb=gb,
-                       iters=iters, seed=seed, **tr["train_config"])
-
-
-def draw(spec: dict, seed: int, device) -> tuple:
-    """(train, test, tables0, gb, cfg, route) of the cell for ``seed``: the
-    ratings and initial tables, the training split's mean, the program's
-    ``TrainConfig`` and the routes its schedule takes (``reference.
-    route``). Where the traffic asks for ``single_route``, every seed runs
-    one route for the whole job: a draw whose schedule changes route within
-    the job (on ML-10M, when one row's ratings in one cell keep epoch 1's
-    eta past the dense bound, so that gen-1 cells run first) is drawn
-    again, from the seed plus 1,000,003 for each try. The program's own
-    seed stays ``seed`` in every try."""
-    import numpy as np
-
-    from mfbench import gen, reference
-
-    cfg_file, tr = spec["config"], spec["traffic"]
-    dim, n_ep = int(cfg_file["dim"]), int(tr["job_epochs"])
-    for k in range(8):
-        data_seed = seed + 1_000_003 * k
-        train, test = gen.generate(cfg_file, data_seed, device)
-        gb = float(np.float32(train.r.mean(dtype=np.float64)))
-        cfg = train_config(spec, seed % (2 ** 31), gb, n_ep)
-        route = reference.route(train.nu, train.nv, dim, train.u, train.v,
-                                cfg.eta_at, cfg.use_dense, n_ep)
-        if len(route) == 1 or not tr.get("single_route", False):
-            break
-    else:
-        raise RuntimeError(f"no draw of seed {seed} runs one route")
-    tables0 = gen.init_tables(train.nu, train.nv, dim, data_seed, device,
-                              float(cfg_file.get("init_scale", 1e-2)))
-    return train, test, tables0, gb, cfg, route
-
-
-def job_runner(cfg, train_coo, test_coo, params, log):
-    """(schedule, job): the runners ``train_mf`` builds for ``cfg`` on the
-    fused route, once, and a function that runs one job on them as
-    ``train_mf`` does (a copy of the initial tables, the epoch loop,
-    epochs 1 to ``cfg.iters``) and returns its final tables."""
-    from tpu_mf_torch.models.mf import MFParams
-    from tpu_mf_torch.ops.rows import MAX_DIM
-    from tpu_mf_torch.train import loop
-
-    if loop._unsupported(cfg) or not cfg.use_pallas or cfg.dim > MAX_DIM:
-        raise NotImplementedError("the harness drives the fused route only")
-    sched = loop._mf_runner_schedule(cfg, train_coo, params, log)
-    obs = loop._Observer(cfg, len(train_coo), log)
-
-    def job():
-        p = MFParams(*(t.clone() for t in params))
-        return loop._run_schedule(cfg, sched, test_coo, p, log, obs)
-
-    return sched, job
-
-
 def run_cell(spec: dict, seed: int, seconds: float, trace: bool,
              device: str = "cuda") -> dict:
     """One run of the cell: the result line's dict (before ``device``)
@@ -267,30 +188,23 @@ def run_cell(spec: dict, seed: int, seconds: float, trace: bool,
     import torch
 
     from mfbench import check, reference
-    from mfbench.spec import reader
+    from mfbench.spec import driver, reader
     from mfbench.trace import summarize
-    from mfbench.work.mf import epoch_work
-    from tpu_mf_torch.data.coo import RatingsCOO
-    from tpu_mf_torch.models.mf import MFParams
 
-    cfg_file, tr = spec["config"], spec["traffic"]
-    if tr["alg"] != "mf":
-        raise NotImplementedError(f"no harness for --alg {tr['alg']}")
+    tr = spec["traffic"]
+    drv = driver(tr["alg"])
+    n_ep = int(tr["job_epochs"])
     cuda = torch.device(device).type == "cuda"
     if cuda:
         torch.cuda.reset_peak_memory_stats()
     t_gen = time.perf_counter()
-    train, test, tables0, gb, cfg, route = draw(spec, seed, device)
-    dim, n_ep = int(cfg_file["dim"]), int(tr["job_epochs"])
-    params = MFParams(tables0["theta"], tables0["phi"], tables0["bu"],
-                      tables0["bv"], torch.tensor(gb, device=device))
+    drawn = drv.draw(spec, seed, device)
+    train, test, gb, route = drawn[0], drawn[1], drawn[3], drawn[5]
     win = Window(seconds=seconds, warmup_jobs=int(tr["warmup_jobs"]),
-                 warmup_seconds=float(tr["warmup_seconds"]), profile=trace)
+                 warmup_seconds=float(tr["warmup_seconds"]), parse=drv.parse,
+                 profile=trace)
     t_call = time.perf_counter()
-    _, job = job_runner(cfg, RatingsCOO(train.u, train.v, train.r, train.nu,
-                                        train.nv),
-                        RatingsCOO(test.u, test.v, test.r, test.nu, test.nv),
-                        params, win.log)
+    job = drv.setup(spec, drawn, win, device)
     final = None
     while True:
         final = None                 # one job's tables alive at a time
@@ -298,8 +212,8 @@ def run_cell(spec: dict, seed: int, seconds: float, trace: bool,
         if win.job_done():
             break
     peak = torch.cuda.max_memory_allocated() if cuda else 0
-    final = {k: getattr(final, k).detach() for k in check.LEAVES}
-    del job, params
+    final = {k: final[k].detach() for k in check.LEAVES}
+    del job
     gc.collect()
     if cuda:
         torch.cuda.empty_cache()
@@ -309,7 +223,7 @@ def run_cell(spec: dict, seed: int, seconds: float, trace: bool,
     n_jobs = win.close_job - win.open_job
     n_epochs = n_jobs * n_ep
     window_s = win.t_close - win.t_open
-    work = epoch_work(train, test, dim, 4 if cfg.dtype == "float32" else 2)
+    work = drv.epoch_work(drawn, spec)
     t_line1, elapsed1, _ = win.lines[0][1]
     schedule_s = t_line1 - elapsed1 - t_call
     dev_test = test.on(device)
@@ -323,13 +237,8 @@ def run_cell(spec: dict, seed: int, seconds: float, trace: bool,
 
     # the check, once the program's state is gone
     t_check = time.perf_counter()
-    dev_train = train.on(device)
-    ref = check.reference_run(
-        route, tables0, dev_train, dev_test, gb, dim, cfg.seed, cfg.eta_at,
-        cfg.lam, cfg_file["work"], cfg_file["dtype"], n_ep)
-    values = check.numbers(win.snap1, final, test_rmse, win.logged(), ref,
-                           tables0)
-    correct, compared = check.judge(values, spec["limits"])
+    values, extras = drv.compare(spec, drawn, win, final, test_rmse, device)
+    correct, compared = check.judge(values, spec["limits"], drv.NUMBERS)
     check_s = time.perf_counter() - t_check
 
     out = {"correct": correct, "attempted": n_epochs, "failed": 0}
@@ -365,7 +274,7 @@ def run_cell(spec: dict, seed: int, seconds: float, trace: bool,
                                "data_s": t_call - t_gen,
                                "schedule_s": schedule_s,
                                "warmup_s": win.t_open - loop_t0}}
-    out["groupings"] = ref["groupings"]
+    out["extras"] = extras
     out["checks"] = compared
     return out
 
@@ -414,7 +323,7 @@ def main(argv=None) -> int:
         line["breakdown"] = out["breakdown"]
     line["route"] = out["route"]
     line["window"] = out["epochs"]
-    line["groupings"] = out["groupings"]
+    line.update(out["extras"])    # the driver's keys (mf: "groupings")
     line["checks"] = checks
     for name, c in checks.items():
         print(f"check {name} {c['value']!r} limit {c['limit']!r}",

@@ -7,13 +7,16 @@ configuration and traffic mix, and each lives in a file of its own.
   epochs, warm-up, whether every seed keeps one route);
 - ``mfbench/limits/<cell>.json``: the limit of each number the check
   compares, and the readings it was set from;
-- ``mfbench/metrics/<metric>.py``: a per-layer metric's reader.
+- ``mfbench/metrics/<metric>.py``: a per-layer metric's reader;
+- ``mfbench/algs/<alg>.py``: the driver of the traffic's trainer
+  (``alg``): its draw, set-up, job, line parse and check.
 """
 
 from __future__ import annotations
 
 import importlib.util
 import json
+import sys
 from pathlib import Path
 
 PKG = Path(__file__).resolve().parent
@@ -68,3 +71,34 @@ def reader(metric: str, pkg: Path = PKG):
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod.read
+
+
+def driver(alg: str, pkg: Path = PKG):
+    """The driver module of trainer ``alg``, from ``algs/<alg>.py``, loaded
+    once a process as ``mfbench.algs.<alg>``."""
+    name = f"mfbench.algs.{alg}"
+    if name in sys.modules:
+        return sys.modules[name]
+    path = pkg / "algs" / f"{alg}.py"
+    if not path.is_file():
+        raise FileNotFoundError(f"no driver for --alg {alg}: {path}")
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[name] = mod
+    try:
+        spec.loader.exec_module(mod)
+    except BaseException:
+        del sys.modules[name]
+        raise
+    return mod
+
+
+def train_config(spec: dict, seed: int, gb: float, iters: int):
+    """The program's ``TrainConfig`` of the cell: the configuration's rank,
+    storage type and catalog, the traffic's trainer and options."""
+    from tpu_mf_torch.config import TrainConfig
+
+    cfg, tr = spec["config"], spec["traffic"]
+    return TrainConfig(alg=tr["alg"], dim=int(cfg["dim"]), dtype=cfg["dtype"],
+                       nu=int(cfg["nu"]), nv=int(cfg["nv"]), gb=gb,
+                       iters=iters, seed=seed, **tr["train_config"])

@@ -14,6 +14,8 @@ import pytest
 import torch
 
 from mfbench import check, gen, reference, run
+from mfbench.algs import mf
+from mfbench.spec import train_config
 from mfbench.tests.cpu_route import limits, tiny_spec
 
 # (cell, scale): each route at a tiny scale that keeps it
@@ -63,14 +65,15 @@ def test_reference_follows_a_late_dense_route():
     dim, n = int(cfg["dim"]), sp["traffic"]["job_epochs"]
     t0 = gen.init_tables(train.nu, train.nv, dim, 3000000043, "cpu")
     gb = float(np.float32(train.r.mean()))
-    c = run.train_config(sp, 7, gb, n)
+    c = train_config(sp, 7, gb, n)
     route = reference.route(train.nu, train.nv, dim, train.u, train.v,
                             c.eta_at, c.use_dense, n)
     assert route == [(1, "cells"), (2, "dense")]
-    win = run.Window(seconds=0.0, warmup_jobs=1, warmup_seconds=0.0)
+    win = run.Window(seconds=0.0, warmup_jobs=1, warmup_seconds=0.0,
+                     parse=mf.parse, snap=mf.snapshot)
     params = MFParams(t0["theta"], t0["phi"], t0["bu"], t0["bv"],
                       torch.tensor(gb))
-    sched, job = run.job_runner(
+    sched, job = mf.job_runner(
         c, RatingsCOO(train.u, train.v, train.r, train.nu, train.nv),
         RatingsCOO(test.u, test.v, test.r, test.nu, test.nv), params,
         win.log)
@@ -155,7 +158,7 @@ def test_control_fails_the_limits(cell):
     t0 = gen.init_tables(train.nu, train.nv, dim, 3000000023, "cpu")
     gb = float(np.float32(train.r.mean()))
     n = sp["traffic"]["job_epochs"]
-    c = run.train_config(sp, 7, gb, n)
+    c = train_config(sp, 7, gb, n)
     dtr, dte = train.on("cpu"), test.on("cpu")
     route = reference.route(train.nu, train.nv, dim, train.u, train.v,
                             c.eta_at, c.use_dense, n)

@@ -16,6 +16,7 @@ import pytest
 import torch
 
 from mfbench import run, spec as S
+from mfbench.algs import mf
 from mfbench.gen import Ratings
 from mfbench.work.mf import epoch_work
 
@@ -138,9 +139,9 @@ def test_window_rate_is_all_work_over_all_time(monkeypatch):
     clock = _Clock()
     monkeypatch.setattr(run.time, "perf_counter", clock)
     snaps = []
-    monkeypatch.setattr(run, "loop_tables",
-                        lambda frame: snaps.append(clock.t) or {})
-    win = run.Window(seconds=1.0, warmup_jobs=1, warmup_seconds=0.35)
+    win = run.Window(seconds=1.0, warmup_jobs=1, warmup_seconds=0.35,
+                     parse=mf.parse,
+                     snap=lambda frame: snaps.append(clock.t) or {})
     assert _jobs(win, clock, [100.3, 100.6, 101.0, 101.45, 101.7, 102.3],
                  step=0.1)
     # warm-up: job 0 ends 0.2 s after the first epoch line, job 1 0.5 s
@@ -161,8 +162,8 @@ def test_warmup_seconds_start_after_epoch_1(monkeypatch):
     for first in (0.05, 9.0):
         clock = _Clock()
         monkeypatch.setattr(run.time, "perf_counter", clock)
-        monkeypatch.setattr(run, "loop_tables", lambda frame: {})
-        win = run.Window(seconds=100.0, warmup_jobs=1, warmup_seconds=0.28)
+        win = run.Window(seconds=100.0, warmup_jobs=1, warmup_seconds=0.28,
+                         parse=mf.parse, snap=lambda frame: {})
         t1 = 100.0 + first
         _jobs(win, clock, [t1 + 0.1 + 0.15 * j for j in range(8)],
               step=0.05)
@@ -173,8 +174,8 @@ def test_warmup_seconds_start_after_epoch_1(monkeypatch):
 def test_warmup_jobs_are_whole(monkeypatch):
     clock = _Clock()
     monkeypatch.setattr(run.time, "perf_counter", clock)
-    monkeypatch.setattr(run, "loop_tables", lambda frame: {})
-    win = run.Window(seconds=0.5, warmup_jobs=3, warmup_seconds=0.0)
+    win = run.Window(seconds=0.5, warmup_jobs=3, warmup_seconds=0.0,
+                     parse=mf.parse, snap=lambda frame: {})
     assert _jobs(win, clock, [101.0 + 0.2 * j for j in range(10)])
     assert win.open_job == 3 and win.close_job == 6
 
@@ -196,7 +197,7 @@ def test_a_draw_that_changes_route_is_drawn_again(monkeypatch):
     monkeypatch.setattr(reference, "route", route)
     sp = tiny_spec("ml10m-d128.mf")
     assert sp["traffic"]["single_route"]
-    train, _, t0, _, cfg, r = run.draw(sp, 3000000047, "cpu")
+    train, _, t0, _, cfg, r = mf.draw(sp, 3000000047, "cpu")
     assert r == [(1, "dense")] and len(seen) == 2 and seen[0] != seen[1]
     assert cfg.seed == 3000000047 % 2 ** 31
     from mfbench import gen
@@ -204,7 +205,7 @@ def test_a_draw_that_changes_route_is_drawn_again(monkeypatch):
     np.testing.assert_array_equal(train.u, want.u)
     sp["traffic"]["single_route"] = False
     seen.clear()
-    assert run.draw(sp, 3000000047, "cpu")[5] == [(1, "cells"), (2, "dense")]
+    assert mf.draw(sp, 3000000047, "cpu")[5] == [(1, "cells"), (2, "dense")]
 
 
 JOB_CASES = {
@@ -233,7 +234,7 @@ def test_a_harness_job_is_a_train_mf_run(case):
                      "cpu")
     lines = []
     want = fused_on_cpu(cfg, ds, test, params, lines.append)
-    _, job = run.job_runner(cfg, ds, test, params, lines.append)
+    _, job = mf.job_runner(cfg, ds, test, params, lines.append)
     for _ in range(2):
         got = job()
         for k in ("theta", "phi", "bu", "bv"):
