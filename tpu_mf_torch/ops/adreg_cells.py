@@ -30,6 +30,13 @@ the plan (the tile walk of each segment's units, or the grid walk), and
 runs the plain version ``adreg_segment_reference`` on CPU tensors. The
 fused runners keep no per-rating shadow tables (only the batched path
 does): ``state`` returns shadows that are copies of the params.
+
+Spans (``train/metrics.py``, off unless turned on): per segment a
+``tmf.adreg_segment`` (its validation rows gathered before the walk, and
+the walk; attributes ``segment`` and ``walk``; counts ``launches`` and
+``walk_tile`` / ``walk_grid``) and a ``tmf.hyper_step`` (the rows gathered
+after it and the step; count ``valid_rows``, K a step), both with device
+events on CUDA tensors; ``materialize`` in ``tmf.plan_upload``.
 """
 
 from __future__ import annotations
@@ -49,6 +56,7 @@ from tpu_mf_torch.ops.common import distinct_counts
 from tpu_mf_torch.ops.rows import MAX_DIM, cdiv
 from tpu_mf_torch.ops.sgd_cells import (
     GROUPS,
+    WALK_KEYS,
     WORK,
     DevicePlan,
     WindowRunner,
@@ -68,6 +76,7 @@ from tpu_mf_torch.ops.tile_walk import (
     upload_walk,
     walk_launch,
 )
+from tpu_mf_torch.train.metrics import count, span
 
 # the validation set on a device: (u, v, r), ids in table rows
 Valid = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
@@ -199,8 +208,11 @@ def adreg_segment(theta: torch.Tensor, phi: torch.Tensor, plan: DevicePlan,
                            f"{rc}")
     if launch is not None:
         walk.counters.advance(launch.n_units, launch.n_clusters)
+    route = "grid" if walk is None else "tile"
     adreg_segment.launches += 1
-    adreg_segment.walks["grid" if walk is None else "tile"] += 1
+    adreg_segment.walks[route] += 1
+    count("launches")
+    count(WALK_KEYS[route])
 
 
 adreg_segment.launches = 0  # kernel launches (CUDA calls), not CPU runs
@@ -237,26 +249,34 @@ def adreg_segment_step(tables, lams: torch.Tensor, plan: DevicePlan, b0: int,
                        gb: float, dim: int, theta_groups: int = 8,
                        phi_groups: int = 8, work: torch.dtype = torch.bfloat16,
                        loss: int = 0, reference: bool = False,
-                       walk: DeviceWalk | None = None) -> torch.Tensor:
+                       walk: DeviceWalk | None = None,
+                       segment: int = 0) -> torch.Tensor:
     """One segment and the step after it (``tpu_mf``'s
     ``_run_adreg_seg_step``): the validation rows of ``samples`` gathered
     from the segment-start tables, the segment (``adreg_segment``, in place
     on ``tables``, on the tile walk of ``walk`` or the grid walk; its plain
     version on any device with ``reference``), the rows gathered again, and
     the hypergradient; returns the new lambdas. ``visits`` is the segment's
-    user-visits (0-d)."""
+    user-visits (0-d). The two halves run in the spans
+    ``tmf.adreg_segment`` and ``tmf.hyper_step`` of segment ``segment``
+    (module docstring)."""
     theta, phi = tables
     uv, vv, rv = valid
-    su, sv, sr = uv[samples], vv[samples], rv[samples]
-    old_t, old_p = theta[su], phi[sv]
-    if reference:
-        adreg_segment_reference(theta, phi, plan, b0, b1, eta, lams, gb, dim,
-                                theta_groups, phi_groups, work, loss)
-    else:
-        adreg_segment(theta, phi, plan, b0, b1, eta, lams, gb, dim,
-                      theta_groups, phi_groups, work, loss, walk)
-    return hypergrad_ext_rows(theta[su], phi[sv], old_t, old_p, sr, lams, eta,
-                              eta_reg, visits, gb, dim, loss)
+    cuda = theta.device.type == "cuda"
+    with span("tmf.adreg_segment", cuda, segment=segment,
+              walk="grid" if walk is None else "tile"):
+        su, sv, sr = uv[samples], vv[samples], rv[samples]
+        old_t, old_p = theta[su], phi[sv]
+        if reference:
+            adreg_segment_reference(theta, phi, plan, b0, b1, eta, lams, gb,
+                                    dim, theta_groups, phi_groups, work, loss)
+        else:
+            adreg_segment(theta, phi, plan, b0, b1, eta, lams, gb, dim,
+                          theta_groups, phi_groups, work, loss, walk)
+    with span("tmf.hyper_step", cuda, segment=segment):
+        count("valid_rows", samples.shape[0])
+        return hypergrad_ext_rows(theta[su], phi[sv], old_t, old_p, sr, lams,
+                                  eta, eta_reg, visits, gb, dim, loss)
 
 
 def segment_seed(key: int, seg: int) -> int:
@@ -302,24 +322,27 @@ class AdRegRunner:
         column a window, the 8/8 groups) and the validation set to the
         runner's device (once)."""
         if not self._dev:
-            dev = self.device
-            p = self.plans[0]
-            counters = TileWalkCounters(p.n_gv, p.n_gu, dev)
-            for idx, plan in enumerate(self.plans):
-                n = self.seg_len(idx)
-                wp = pad_plan_nb(self._window_plan(plan),
-                                 self._segs[idx] * n)
-                nb = wp.u.shape[0]
-                visits = distinct_counts(wp.u.reshape(nb, -1),
-                                         wp.w.reshape(nb, -1) > 0)
-                self._visits.append(torch.as_tensor(
-                    visits.reshape(self._segs[idx], -1).sum(1)).to(dev))
-                self._dev.append(upload_plan(wp, dev))
-                self.walks.append(upload_walk(
-                    segment_walks(wp, n, self._segs[idx]), counters))
-            self._valid = tuple(torch.as_tensor(x).to(dev)
-                                for x in self._valid_host)
+            with span("tmf.plan_upload"):
+                self._upload()
         return self
+
+    def _upload(self) -> None:
+        dev = self.device
+        p = self.plans[0]
+        counters = TileWalkCounters(p.n_gv, p.n_gu, dev)
+        for idx, plan in enumerate(self.plans):
+            n = self.seg_len(idx)
+            wp = pad_plan_nb(self._window_plan(plan), self._segs[idx] * n)
+            nb = wp.u.shape[0]
+            visits = distinct_counts(wp.u.reshape(nb, -1),
+                                     wp.w.reshape(nb, -1) > 0)
+            self._visits.append(torch.as_tensor(
+                visits.reshape(self._segs[idx], -1).sum(1)).to(dev))
+            self._dev.append(upload_plan(wp, dev))
+            self.walks.append(upload_walk(
+                segment_walks(wp, n, self._segs[idx]), counters))
+        self._valid = tuple(torch.as_tensor(x).to(dev)
+                            for x in self._valid_host)
 
     def pad(self, state: AdaptRegState):
         """The fused tables of the state's params; the lambdas move to the
@@ -368,7 +391,7 @@ class AdRegRunner:
             self.lams = adreg_segment_step(
                 tables, self.lams, plan, s * n, (s + 1) * n, self._valid, ks,
                 eta, eta_reg, self._visits[idx][s], self.gb, self.dim, tg, pg,
-                self.work_dtype, self.loss, reference, dwalk)
+                self.work_dtype, self.loss, reference, dwalk, segment=s)
         type(self).launches += adreg_segment.launches - launched
         return tables
 

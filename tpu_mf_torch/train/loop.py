@@ -747,7 +747,20 @@ def _admf_runner(cfg: TrainConfig, train_ds: RatingsCOO,
     eta0 clears the pigeonhole bound (``slot_dup_lower_bound``) and then
     the runner's own window duplicates (eta0 * dups <= 0.2); else the
     gen-1 runner (tiles 512, batch max(1024, batch_size)) up to
-    ``MAX_DIM``."""
+    ``MAX_DIM``. The plan builds, their statistics and the route probes
+    run on the host in a ``tmf.plan_build`` span; the plans reach the
+    device at the runner's ``materialize`` (``tmf.plan_upload``)."""
+    device = torch.device(device)
+    if not (cfg.use_pallas and device.type == "cuda"):
+        return None
+    with span("tmf.plan_build"):
+        return _admf_pick(cfg, train_ds, valid_ds, state, log, device)
+
+
+def _admf_pick(cfg: TrainConfig, train_ds: RatingsCOO, valid_ds: RatingsCOO,
+               state: AdaptRegState, log: Callable[[str], None],
+               device: torch.device):
+    """The body of ``_admf_runner``: its runner, or None past ``MAX_DIM``."""
     from tpu_mf_torch.ops.adreg_cells import (
         AdRegCellRunner,
         adreg_cells_eligible,
@@ -755,9 +768,6 @@ def _admf_runner(cfg: TrainConfig, train_ds: RatingsCOO,
     from tpu_mf_torch.ops.adreg_slot import SlotAdRegRunner, adreg_slot_eligible
     from tpu_mf_torch.ops.sgd_slot import slot_dup_lower_bound
 
-    device = torch.device(device)
-    if not (cfg.use_pallas and device.type == "cuda"):
-        return None
     n_plans = 2 if cfg.iters > 1 else 1  # between-epoch reshuffling
     eta0 = cfg.eta_at(1)
     if adreg_slot_eligible(state):
@@ -789,20 +799,26 @@ def _admf_runner(cfg: TrainConfig, train_ds: RatingsCOO,
     return None
 
 
-def _admf_report(cfg: TrainConfig, it: int, t0: float, params: MFParams,
+def _admf_report(cfg: TrainConfig, it: int, t0: float,
+                 params: Callable[[], MFParams],
                  test: Optional[SimpleNamespace], lams, kernel: str,
                  log: Callable[[str], None], obs: _Observer) -> None:
     """Epoch ``it``'s iter# line, its --metrics fields and, on the resume
-    cadence, its state (``params`` and the four lambdas, ``tpu_mf``'s
-    keys)."""
+    cadence, its state (``params()`` and the four lambdas, ``tpu_mf``'s
+    keys). The test RMSE is taken in a ``tmf.eval`` span, and ``params()``
+    inside it in a ``tmf.trim`` span."""
     elapsed = time.perf_counter() - t0
     t_rmse = None
     if test is not None:
-        t_rmse = rmse(params, test)
+        with span("tmf.eval"):
+            with span("tmf.trim"):
+                p = params()
+            t_rmse = rmse(p, test)
+            del p
         log(f"iter#{it}\t{elapsed:f}\ttRMSE={t_rmse:f}")
     else:
         log(f"iter#{it}\t{elapsed:f}")
-    obs.epoch_done(it, params_fn=lambda: params,
+    obs.epoch_done(it, params_fn=params,
                    extras_fn=lambda: {k: np.float32(float(x))
                                       for k, x in zip(LAMBDAS, lams)},
                    alg="admf", kernel=kernel, eta=cfg.eta_at(it),
@@ -815,19 +831,29 @@ def _train_admf_fused(cfg: TrainConfig, runner, state: AdaptRegState,
                       ) -> AdaptRegState:
     """AdaptReg epochs start+1..cfg.iters on a fused runner:
     ``runner.epoch`` per epoch with the epoch's key, plans rotated by
-    epoch."""
+    epoch. In a ``tmf.run`` span, as ``_run_schedule``'s epochs: the
+    ``tmf.pad``, each ``tmf.epoch`` (the runner's epoch, its segments'
+    spans, and the device synchronize after it), each ``tmf.eval``
+    (``_admf_report``) and the final ``tmf.trim``."""
     dev = state.params.theta.device
+    cuda = dev.type == "cuda"
     test = _on_device(test_ds, dev) if test_ds is not None else None
-    tables = runner.pad(state)
-    t0 = time.perf_counter()
-    for it in range(start + 1, cfg.iters + 1):
-        tables = runner.epoch(tables, cfg.eta_at(it), cfg.eta_reg_at(it),
-                              _admf_key(cfg, it), epoch_idx=it - 1)
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-        _admf_report(cfg, it, t0, runner.trim(tables), test, runner.lams,
-                     type(runner).__name__, log, obs)
-    return runner.state(tables)
+    kernel = type(runner).__name__
+    with span("tmf.run", first=start + 1, last=cfg.iters):
+        with span("tmf.pad"):
+            tables = runner.pad(state)
+        t0 = time.perf_counter()
+        for it in range(start + 1, cfg.iters + 1):
+            eta = cfg.eta_at(it)
+            with span("tmf.epoch", cuda, epoch=it, kernel=kernel, eta=eta):
+                tables = runner.epoch(tables, eta, cfg.eta_reg_at(it),
+                                      _admf_key(cfg, it), epoch_idx=it - 1)
+                if cuda:
+                    torch.cuda.synchronize(dev)
+            _admf_report(cfg, it, t0, lambda: runner.trim(tables), test,
+                         runner.lams, kernel, log, obs)
+        with span("tmf.trim"):
+            return runner.state(tables)
 
 
 def _train_admf_batched(cfg: TrainConfig, train_ds: RatingsCOO,
@@ -858,7 +884,7 @@ def _train_admf_batched(cfg: TrainConfig, train_ds: RatingsCOO,
                                        cfg.loss), samples)
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
-        _admf_report(cfg, it, t0, state.params, test,
+        _admf_report(cfg, it, t0, lambda: state.params, test,
                      [getattr(state, k) for k in LAMBDAS], "batched", log,
                      obs)
     return state
@@ -1178,7 +1204,7 @@ def train_admf_stream(
                     batch_size=cfg.batch_size, fly=cfg.fly)
                 if device.type == "cuda":
                     torch.cuda.synchronize(device)
-                _admf_report(cfg, it, t0, state.params, test,
+                _admf_report(cfg, it, t0, lambda: state.params, test,
                              [getattr(state, k) for k in LAMBDAS], "stream",
                              log, obs)
             return state

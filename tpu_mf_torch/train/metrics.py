@@ -50,8 +50,9 @@ RUN = "tmf.run"  # the span whose id the spans opened inside it share
 _RANGE = getattr(torch._C._profiler, "_RecordFunctionFast",
                  torch.profiler.record_function)
 # the counters the port's spans carry, besides the ``groups_<t>x<p>``
-# grouping of each window-plan launch
-COUNTS = ("launches", "h2d_bytes")
+# grouping of each window-plan launch (``valid_rows``: the validation rows
+# of AdaptReg's hypergradient steps)
+COUNTS = ("launches", "h2d_bytes", "valid_rows")
 
 _on = False
 _records: list = []  # (record, CUDA event pair or None), appended under _lock
