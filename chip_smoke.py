@@ -175,10 +175,24 @@ results: 3, 5, 24, 25 and 29; 7-10; 12 and 14; 16 and 18:
      one round / epoch each at dim 128 (the per-batch path), beside one
      parse-only pass over the file;
  29. ``--measure 1``'s ranking metrics on phase 3's model, timed, and
-     ``recommend_topk`` for 1,024 users against float64 on the CPU.
+     ``recommend_topk`` for 1,024 users against float64 on the CPU;
+ 30. the rating-set SSE of ``calc_mse`` (``csrc/rating_sse.cu``) at dim
+     128 on views of fused tables, as the loops evaluate: the DP-SGLD train
+     set (9M ratings), the ML-10M test set (1M) and a Yahoo-shape test set
+     (2M): one launch timed with CUDA events beside its bound, ``calc_mse``
+     on the host clock, the plain version (chunks of 2^20) timed and each
+     side's device memory above the tables; the kernel held to the plain
+     version (float32 and bf16 tables) and two launches to the same bits.
+
+Every run of ``train_mf``, ``train_dpmf`` and ``train_admf`` above also
+reads the launch count of ``csrc/rating_sse.cu`` at each epoch's or round's
+log line: one launch an epoch's test RMSE, two a DP-SGLD round (its train
+MSE and test RMSE), or the phase fails.
 
 Each phase group prints its seconds. The last lines are the kernels' JSON
-summary (time, launches on the main path, bound; for the SGLD, AdaptReg
+summary (time, launches on the main path, bound; for ``rating_sse`` the
+time and bound of the DP-SGLD train set and the launches of phase 12's
+rounds; for the SGLD, AdaptReg
 and free-column kernels the walk the main path took, whose time and error
 the line gives; for ``phi_shard``, ``cell_sgd.cu`` on the item-sharded
 path, the time, error and bound of one sub-epoch, shard 0 of epoch 1, and
@@ -264,7 +278,12 @@ LAM_AD, ETA_AD, ETA_REG_AD = 0.05, 0.002, 0.01
 # how far the epoch moved them
 LAM_REL = 1e-2
 KERNELS = ("dense_cell", "cell_sgd", "sgld_cells", "adreg_cells",
-           "free_cells")
+           "free_cells", "rating_sse")
+# phase 30: the rating-set SSE against its plain version: both take each
+# product in the storage type and sum the dot product and residual in
+# float32, in different orders; the plain version sums each chunk's squared
+# errors in float32 (tests/test_torch_cuda.py: SSE_RTOL)
+SSE_RTOL = 5e-6
 # the two walks of csrc/sgld_cells.cu, csrc/adreg_cells.cu and
 # csrc/free_cells.cu (tpu_mf_torch/ops/tile_walk.py: WALKS)
 WALKS = ("tile", "grid")
@@ -625,22 +644,25 @@ def run_main_path(torch, train, test, phase, dim, iters, use_dense,
     from tpu_mf_torch.config import TrainConfig
     from tpu_mf_torch.ops import sgd_cells as tc
     from tpu_mf_torch.ops.phi_shard import PhiShardedRunner
+    from tpu_mf_torch.ops.rating_sse import rating_sse
     from tpu_mf_torch.train import train_mf
 
     cfg = TrainConfig(dim=dim, iters=iters, gb=train.mean_rating(),
                       use_dense=use_dense, **opts)
     counts = counters()
-    lines, marks = [], []
+    lines, marks, sse = [], [], []
 
     def record(line):
         lines.append(line)
         log(line)
         if line.startswith("iter#"):
             marks.append({k: c.launches for k, c in counts.items()})
+            sse.append(rating_sse.launches)
         if on_line is not None:
             on_line(line)
 
-    for c in list(counts.values()) + [tc.cell_epoch, PhiShardedRunner]:
+    for c in list(counts.values()) + [tc.cell_epoch, PhiShardedRunner,
+                                      rating_sse]:
         c.launches = 0
     walks = counts["dense_cell"].walks
     for k in walks:
@@ -662,6 +684,8 @@ def run_main_path(torch, train, test, phase, dim, iters, use_dense,
         + f"; dense_cell launches by walk {walks}")
     if walks["wavefront"] + walks["diagonal"] != sum(per_epoch["dense_cell"]):
         raise AssertionError("a dense launch outside the two walks")
+    log(f"# phase {phase}: rating_sse launches per epoch "
+        f"{sse_evals(sse, 1, f'phase {phase}')}")
     rm = [float(x.split("tRMSE=")[1]) for x in lines if "tRMSE=" in x]
     if not (len(rm) == iters and all(map(math.isfinite, rm))
             and rm[-1] < rm[0]):
@@ -677,6 +701,18 @@ def only(per_epoch, kernel, epochs, per=1):
     if got != want:
         raise AssertionError(f"{kernel} launches per epoch {got}, want {want}")
     return sum(got)
+
+
+def sse_evals(marks, per, what):
+    """``csrc/rating_sse.cu``'s launches in each epoch or round of a main-path
+    run, from its wrapper's count (set to 0 just before the run) read at each
+    epoch's or round's log line: ``per`` in each, one a test RMSE and one a
+    DP-SGLD round's train MSE. Returns them."""
+    got = [b - a for a, b in zip([0] + marks, marks)]
+    if not got or got != [per] * len(got):
+        raise AssertionError(f"{what}: rating_sse launches per epoch or round "
+                             f"{got}, want {per} each")
+    return got
 
 
 def phase_train(torch, train, test):
@@ -1466,6 +1502,7 @@ def run_dpmf(torch, train, test, phase, dim):
     from tpu_mf_torch.models.mf import rmse
     from tpu_mf_torch.ops import sgld_cells as tg
     from tpu_mf_torch.ops import sgld_slot as tss
+    from tpu_mf_torch.ops.rating_sse import rating_sse
     from tpu_mf_torch.train import train_dpmf
 
     cfg = TrainConfig(alg="dpmf", dim=dim, iters=ROUNDS,
@@ -1475,15 +1512,16 @@ def run_dpmf(torch, train, test, phase, dim):
     counts = {**counters(), "sgld": tg.SgldCellRunner,
               "slot_sgld": tss.SlotSgldRunner}
     wrappers = (tg.sgld_cell_epoch, tss.sgld_slot_epoch)
-    lines, marks = [], []
+    lines, marks, sse = [], [], []
 
     def record(line):
         lines.append(line)
         log(line)
         if line.startswith("round #"):
             marks.append({k: c.launches for k, c in counts.items()})
+            sse.append(rating_sse.launches)
 
-    for c in list(counts.values()) + list(wrappers):
+    for c in list(counts.values()) + list(wrappers) + [rating_sse]:
         c.launches = 0
     for c in wrappers:
         c.walks = dict.fromkeys(WALKS, 0)
@@ -1498,10 +1536,12 @@ def run_dpmf(torch, train, test, phase, dim):
                                            sum(per_round["slot_sgld"])]:
         raise AssertionError("an SGLD launch outside the runners")
     walks = {w: sum(c.walks[w] for c in wrappers) for w in WALKS}
+    evals = sse_evals(sse, 2, f"phase {phase}")
     log(f"# phase {phase}: train_dpmf(dim={dim}) on cuda, {ROUNDS} rounds in "
         f"{wall:.1f} s (set-up included); launches per round "
         + ", ".join(f"{k} {v}" for k, v in per_round.items())
-        + f"; SGLD launches by walk {walks}")
+        + f"; SGLD launches by walk {walks}; rating_sse launches per round "
+        f"{evals}")
     rows = [x.split("\t") for x in lines if x.startswith("round #")]
     rmse_tr = [float(x[1].split("=")[1]) for x in rows]
     rm = [float(x[2].split("=")[1]) for x in rows]
@@ -1512,7 +1552,7 @@ def run_dpmf(torch, train, test, phase, dim):
             and max(rm) < rm_init):
         raise AssertionError(f"RMSE {rmse_tr} / tRMSE {rm} not finite or "
                              f"not below the initial {rm_init}")
-    return cfg, state, rm, per_round, walks
+    return cfg, state, rm, per_round, walks, sum(evals)
 
 
 def time_dpmf_round(torch, tg, tss, cfg, train, test, phase, name, runner,
@@ -1598,10 +1638,12 @@ def time_dpmf_round(torch, tg, tss, cfg, train, test, phase, name, runner,
 
 def phase_dpmf(torch, tg, tss, train, test, phase, dim, family):
     """Phases 12 and 13: the main path, then its round timed; every round
-    of the main path must take the routed walk."""
+    of the main path must take the routed walk. Returns the run's config
+    and state, the family's launches, the timed round, the route and the
+    main path's launches of ``csrc/rating_sse.cu``."""
     with keep_built(torch, "_dpmf_runner") as kept:
-        cfg, state, _, per_round, walks = run_dpmf(torch, train, test, phase,
-                                                   dim)
+        cfg, state, _, per_round, walks, evals = run_dpmf(
+            torch, train, test, phase, dim)
     launches = only(per_round, family, range(1, ROUNDS + 1))
     for k in per_round:
         if k != family:
@@ -1612,7 +1654,7 @@ def phase_dpmf(torch, tg, tss, train, test, phase, dim, family):
     if walks[route] != launches:
         raise AssertionError(f"{family}: {walks} launches by walk, not all "
                              f"{launches} on the routed {route} walk")
-    return cfg, state, launches, timed, route
+    return cfg, state, launches, timed, route, evals
 
 
 def phase_checkpoint_dpmf(torch, cfg, state):
@@ -1785,6 +1827,7 @@ def run_admf(torch, train, valid, test, phase, dim, eta):
     from tpu_mf_torch.ops import adreg_slot as tas
     from tpu_mf_torch.ops import sgld_cells as tg
     from tpu_mf_torch.ops import sgld_slot as tss
+    from tpu_mf_torch.ops.rating_sse import rating_sse
     from tpu_mf_torch.train import train_admf
 
     cfg = TrainConfig(alg="admf", dim=dim, iters=AD_EPOCHS, lam=LAM_AD,
@@ -1793,15 +1836,16 @@ def run_admf(torch, train, valid, test, phase, dim, eta):
               "slot_sgld": tss.SlotSgldRunner, "adreg": tac.AdRegCellRunner,
               "slot_adreg": tas.SlotAdRegRunner}
     wrappers = (tac.adreg_segment, tg.sgld_cell_epoch, tss.sgld_slot_epoch)
-    lines, marks = [], []
+    lines, marks, sse = [], [], []
 
     def record(line):
         lines.append(line)
         log(line)
         if line.startswith("iter#"):
             marks.append({k: c.launches for k, c in counts.items()})
+            sse.append(rating_sse.launches)
 
-    for c in list(counts.values()) + list(wrappers):
+    for c in list(counts.values()) + list(wrappers) + [rating_sse]:
         c.launches = 0
     tac.adreg_segment.walks = dict.fromkeys(WALKS, 0)
     t = time.perf_counter()
@@ -1818,7 +1862,8 @@ def run_admf(torch, train, valid, test, phase, dim, eta):
     log(f"# phase {phase}: train_admf(dim={dim}, eta={eta:g}) on cuda, "
         f"{AD_EPOCHS} epochs in {wall:.1f} s (set-up included); launches per "
         f"epoch " + ", ".join(f"{k} {v}" for k, v in per_epoch.items())
-        + f"; AdaptReg launches by walk {walks}")
+        + f"; AdaptReg launches by walk {walks}; rating_sse launches per "
+        f"epoch {sse_evals(sse, 1, f'phase {phase}')}")
     rm = [float(x.split("tRMSE=")[1]) for x in lines if "tRMSE=" in x]
     lams = [float(x) for x in state[5:]]
     log(f"# phase {phase}: lambdas lam_u, lam_v, lam_bu, lam_bv {lams} "
@@ -2990,6 +3035,109 @@ def phase_measure(torch, params, train, test, cli_line):
         raise AssertionError("recommend_topk disagrees with float64")
 
 
+# ---- the rating-set SSE of calc_mse (phase 30) ----------------------------
+
+def sse_sets(torch, train, test):
+    """(name, nu, nv, u, v, r) of phase 30's rating sets, on the card."""
+    from tpu_mf_torch.data.coo import synthetic_ratings
+
+    t = time.perf_counter()
+    ytest = synthetic_ratings(
+        Y_USERS, Y_ITEMS, 2_000_000, rank=8, seed=Y_SEED, noise=0.76,
+        signal=1.0, bias_std=0.38, zipf=1.0, zipf_q=50.0, zipf_u=1.0,
+        zipf_uq=250.0)
+    log(f"# phase 30: Yahoo-shape test set, {len(ytest)} ratings, in "
+        f"{time.perf_counter() - t:.1f} s")
+    return [(name, ds.nu, ds.nv,
+             *(torch.as_tensor(getattr(ds, k)).to(DEVICE) for k in "uvr"))
+            for name, ds in (("dpmf train", train), ("ML-10M test", test),
+                             ("Yahoo test", ytest))]
+
+
+def sse_bound(torch, nu, nv, u, v, dim):
+    """Each rating's ids and rating read once, and each row it touches
+    (factors and bias, float32) once; 2 dim + 5 float32 operations a
+    rating."""
+    rows = (torch.unique(u).numel() + torch.unique(v).numel()) * (dim + 1)
+    n = u.numel()
+    return bound(12 * n + 4 * rows, n * (2 * dim + 5), PEAK_F32)
+
+
+def phase_rating_sse(torch, train, test):
+    """Phase 30 (module docstring); returns the max relative error and
+    (ms, plain ms, bound) of the DP-SGLD train set."""
+    from tpu_mf_torch.models.mf import (MFParams, calc_mse,
+                                        calc_mse_reference)
+    from tpu_mf_torch.ops import rating_sse as rs
+    from tpu_mf_torch.ops.rows import pad_params, split_params
+
+    dim, reps = DIM_DP, 20
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    out, worst = None, 0.0
+    for name, nu, nv, u, v, r in sse_sets(torch, train, test):
+        g = torch.Generator(device=DEVICE).manual_seed(nu)
+        p = MFParams(*(0.1 * torch.randn(*s, generator=g, device=DEVICE)
+                       for s in ((nu, dim), (nv, dim), (nu,), (nv,))),
+                     torch.tensor(3.5, device=DEVICE))
+        p = split_params(*pad_params(p, nu, nv), nu, nv, dim, p.gb)
+        lay = rs.sse_layout(p.theta, p.phi)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        first = rs.rating_sse(*p, u, v, r)
+        for _ in range(3):
+            if not torch.equal(rs.rating_sse(*p, u, v, r), first):
+                raise AssertionError("phase 30: two launches differ")
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        e0.record()
+        for _ in range(reps):
+            rs.rating_sse(*p, u, v, r)
+        e1.record()
+        torch.cuda.synchronize()
+        ms = e0.elapsed_time(e1) / reps
+        k_mem = torch.cuda.max_memory_allocated() - base
+        t, before = time.perf_counter(), rs.rating_sse.launches
+        for _ in range(reps):
+            got = calc_mse(p, u, v, r)
+        host_ms = (time.perf_counter() - t) / reps * 1e3
+        if rs.rating_sse.launches != before + reps:
+            raise AssertionError("phase 30: calc_mse did not launch once a "
+                                 "call")
+        torch.cuda.reset_peak_memory_stats()
+        e0.record()
+        for _ in range(3):
+            want = calc_mse_reference(p, u, v, r)
+        e1.record()
+        torch.cuda.synchronize()
+        plain_ms = e0.elapsed_time(e1) / 3
+        p_mem = torch.cuda.max_memory_allocated() - base
+        err = abs(got - want) / want
+        bf = MFParams(*(x.to(torch.bfloat16) for x in p[:4]), p.gb)
+        got_bf = calc_mse(bf, u, v, r)
+        want_bf = calc_mse_reference(bf, u, v, r)
+        err_bf = abs(got_bf - want_bf) / want_bf
+        bms, by = sse_bound(torch, nu, nv, u, v, dim)
+        n = u.numel()
+        gathered = 2 * n * dim * 4
+        log(f"# phase 30: {name}: {n} ratings, nu {nu}, nv {nv}, "
+            f"dim {dim}, layout {tuple(lay)}, grid {rs.grid_blocks(n, sms)}: "
+            f"kernel {ms:.4f} ms ({gathered / ms / 1e6:.0f} GB/s of rows "
+            f"gathered), calc_mse {host_ms:.4f} ms on the host clock, plain "
+            f"{plain_ms:.3f} ms, bound {bms:.4f} ms ({by}); device memory "
+            f"above the tables: kernel {k_mem / 2**20:.2f} MiB, plain "
+            f"{p_mem / 2**20:.1f} MiB; mse {got:.9f} / plain {want:.9f} "
+            f"(rel {err:.2e}), bf16 tables {got_bf:.9f} / {want_bf:.9f} "
+            f"(rel {err_bf:.2e})")
+        if max(err, err_bf) > SSE_RTOL:
+            raise AssertionError(f"phase 30: rating_sse and its plain "
+                                 f"version disagree on the {name} set")
+        worst = max(worst, err, err_bf)
+        if out is None:
+            out = (ms, plain_ms, (bms, by))
+        del p, bf
+    return worst, out
+
+
 def entry(name, replaces, launches, err, timed, source=None, walk=None):
     """A kernel's line of the JSON summary; ``walk`` names the walk of
     ``csrc/sgld_cells.cu``, ``csrc/adreg_cells.cu`` or ``csrc/free_cells.cu``
@@ -3011,7 +3159,7 @@ def entry(name, replaces, launches, err, timed, source=None, walk=None):
 # phases that run together: a later one reads what the first one made
 PHASE_GROUPS = ((1,), (2,), (3, 5, 24, 25, 29), (4,), (6,), (7, 8, 9, 10),
                 (11,), (12, 14), (13,), (15,), (16, 18), (17,), (19,), (20,),
-                (21,), (22,), (23,), (26,), (27,), (28,))
+                (21,), (22,), (23,), (26,), (27,), (28,), (30,))
 
 
 def parse_args(argv):
@@ -3081,7 +3229,7 @@ def main(argv=None) -> int:
     log(f"# phases to run: {sorted(phases)}")
     t_start = time.perf_counter()
     card = phase_build()
-    if want(*range(2, 11), 12, 13, 14, 16, 17, 18, 20, 21, 26, 27, 28):
+    if want(*range(2, 11), 12, 13, 14, 16, 17, 18, 20, 21, 26, 27, 28, 30):
         train, test = load_data()
     cell_src = "tpu_mf_torch/csrc/cell_sgd.cu"
     sgld_src = "tpu_mf_torch/csrc/sgld_cells.cu"
@@ -3139,11 +3287,11 @@ def main(argv=None) -> int:
         sgld_errs = phase_compare_sgld(torch, tg, tss,
                                        np.random.default_rng(3))
     if want(12):
-        dcfg, dstate, sgld_launches, sgld_t, sgld_walk = phase_dpmf(
+        dcfg, dstate, sgld_launches, sgld_t, sgld_walk, sse_main = phase_dpmf(
             torch, tg, tss, train, test, 12, DIM_DP, "sgld")
         phase_checkpoint_dpmf(torch, dcfg, dstate)
     if want(13):
-        _, _, slot_sgld_launches, slot_sgld_t, slot_sgld_walk = phase_dpmf(
+        _, _, slot_sgld_launches, slot_sgld_t, slot_sgld_walk, _ = phase_dpmf(
             torch, tg, tss, train, test, 13, DIM_DP8, "slot_sgld")
     if want(11, 12, 13):
         lap("11-14")
@@ -3231,6 +3379,15 @@ def main(argv=None) -> int:
     if want(28):
         phase_stream_dp_ad(torch, train, test)
         lap("28")
+    if want(30):
+        sse_err, sse_t = phase_rating_sse(torch, train, test)
+        lap("30")
+    if ran(12, 30):
+        # launches of phase 12's main path (two a round); ms, plain_ms,
+        # max_abs_err (here relative: of the mean squared error) and the
+        # bound are of the DP-SGLD train set
+        ent["rating_sse"] = entry("rating_sse", None, sse_main, sse_err,
+                                  sse_t)
     bad = sorted(m for m in sys.modules
                  if m.split(".")[0] in ("jax", "jaxlib", "tpu_mf"))
     if bad:
@@ -3238,7 +3395,7 @@ def main(argv=None) -> int:
     log(f"# phases {sorted(phases)}: {time.perf_counter() - t_start:.1f} s")
     kinds = [k for k in ("dense_cell", "cell_sgd", "phi_shard", "stream",
                          "packed", "slot", "sgld", "slot_sgld", "adreg",
-                         "slot_adreg", "mega", "free")
+                         "slot_adreg", "mega", "free", "rating_sse")
              if k in ent]
     log(json.dumps({"kernels": [ent[k] for k in kinds]}))
     log(card)

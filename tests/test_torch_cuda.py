@@ -7,6 +7,7 @@ This file imports no JAX, so it also runs on a machine without it:
 """
 
 import dataclasses
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -14,9 +15,11 @@ import torch
 
 from tpu_mf_torch.config import TrainConfig
 from tpu_mf_torch.data.coo import RatingsCOO, synthetic_ratings
-from tpu_mf_torch.models.mf import params_from_numpy
+from tpu_mf_torch.models.mf import (MFParams, calc_mse, calc_mse_reference,
+                                    params_from_numpy, rmse)
 from tpu_mf_torch.ops import adreg_cells as tac
 from tpu_mf_torch.ops import adreg_slot as tas
+from tpu_mf_torch.ops import rating_sse as rs
 from tpu_mf_torch.ops import sgd_cells as tc
 from tpu_mf_torch.ops import sgd_dense as td
 from tpu_mf_torch.ops import sgd_free as tf
@@ -24,8 +27,9 @@ from tpu_mf_torch.ops import sgd_mega as tm
 from tpu_mf_torch.ops import sgd_packed as tpk
 from tpu_mf_torch.ops import sgd_slot as tsl
 from tpu_mf_torch.ops.phi_shard import PhiShardedRunner
+from tpu_mf_torch.ops.rows import pad_params, split_params
 from tpu_mf_torch.train import train_mf
-from tpu_mf_torch.train.metrics import recording
+from tpu_mf_torch.train.metrics import recording, span
 
 
 def np_tables(nu, nv, dim, seed, gb):
@@ -1184,3 +1188,128 @@ def test_streamed_mf_raises_when_the_kernel_cannot_build(cuda, tmp_path,
     with pytest.raises(RuntimeError, match="nvcc failed"):
         train_mf_stream(TrainConfig(dim=16, iters=1), path, device=cuda,
                         log=lambda _: None)
+
+
+# ---- csrc/rating_sse.cu: the rating-set SSE of calc_mse -------------------
+
+def sse_tables(dev, nu, nv, dim, dtype=torch.float32, seed=0):
+    """Tables with test-RMSE-like residuals, made on the card."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def normal(*shape):
+        return (0.3 * torch.randn(*shape, generator=g, device=dev)).to(dtype)
+
+    return MFParams(normal(nu, dim), normal(nv, dim), normal(nu), normal(nv),
+                    torch.tensor(3.5, device=dev))
+
+
+def sse_ratings(dev, nu, nv, n, seed=1):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    u = torch.randint(0, nu, (n,), generator=g, device=dev, dtype=torch.int32)
+    v = torch.randint(0, nv, (n,), generator=g, device=dev, dtype=torch.int32)
+    r = 1.0 + 4.0 * torch.rand(n, generator=g, device=dev)
+    return u, v, r
+
+
+# Kernel against plain version: both take each product in the storage type
+# and sum the dot product and residual in float32, in different orders (a
+# few float32 steps of a residual); the plain version sums each chunk's
+# squared errors in float32 (~log2(chunk) steps). So 5e-6 relative.
+SSE_RTOL = 5e-6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dim", [8, 64, 128, 30])
+def test_rating_sse_matches_plain(cuda, dtype, dim):
+    """One launch against ``calc_mse_reference`` on the same tables:
+    16-byte loads at dims 8-128 (groups of 2-32 lanes), element loads at
+    dim 30; n not a multiple of the 256 ratings of a block."""
+    p = sse_tables(cuda, 3000, 2000, dim, getattr(torch, dtype))
+    u, v, r = sse_ratings(cuda, 3000, 2000, 300_001)
+    got, want = calc_mse(p, u, v, r), calc_mse_reference(p, u, v, r)
+    assert abs(got - want) <= SSE_RTOL * want
+    assert rs.sse_layout(p.theta, p.phi).vec == (dim != 30)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("runner", ["dense", "gen-1", "sharded"])
+def test_rating_sse_reads_trimmed_views(cuda, runner):
+    """The tables the runners' ``trim`` returns at dim 128 (``split_params``
+    views of 256-lane fused rows; the gen-1 runner's after its balance
+    maps, the item-sharded runner's after its maps and the shards'
+    concatenation) are read in place: the same bits as their contiguous
+    copies, and the plain version's sum."""
+    nu, nv, dim = 5000, 3000, 128
+    p = sse_tables(cuda, nu, nv, dim)
+    rng = np.random.default_rng(7)
+    mu = rng.permutation(nu + 120)[:nu] if runner != "dense" else None
+    mv = rng.permutation(nv + 72)[:nv] if runner != "dense" else None
+    th, ph = pad_params(p, nu + 120, nv + 72, mu, mv)
+    if runner == "sharded":
+        ph = torch.cat(torch.split(ph, 1024), 0)
+    view = split_params(th, ph, nu, nv, dim, p.gb, mu, mv)
+    assert view.theta.stride(0) == 256 and view.bu.stride(0) == 256
+    copy = MFParams(*(t.contiguous() for t in view))
+    u, v, r = sse_ratings(cuda, nu, nv, 200_000)
+    got = calc_mse(view, u, v, r)
+    assert got == calc_mse(copy, u, v, r)
+    want = calc_mse_reference(copy, u, v, r)
+    assert abs(got - want) <= SSE_RTOL * want
+
+
+@pytest.mark.cuda
+def test_rating_sse_at_the_dpmf_train_size(cuda):
+    """The DP-SGLD train set's size at ML-10M, dim 128 (9M ratings over
+    69,878 x 10,677 rows, views of fused tables): the plain version's sum,
+    the same bits from two launches, and host int64 ids the bits of device
+    int32 ones."""
+    nu, nv, dim, n = 69_878, 10_677, 128, 9_000_000
+    p = sse_tables(cuda, nu, nv, dim)
+    th, ph = pad_params(p, nu, nv)
+    view = split_params(th, ph, nu, nv, dim, p.gb)
+    u, v, r = sse_ratings(cuda, nu, nv, n)
+    first = rs.rating_sse(*view, u, v, r)
+    second = rs.rating_sse(*view, u, v, r)
+    assert torch.equal(first, second) and float(first[1]) == 0.0
+    want = calc_mse_reference(view, u, v, r)
+    assert abs(float(first[0]) / n - want) <= SSE_RTOL * want
+    host = (u.cpu().numpy().astype(np.int64),
+            v.cpu().numpy().astype(np.int64), r.cpu().numpy())
+    assert calc_mse(view, *host) == float(first[0]) / n
+
+
+@pytest.mark.cuda
+def test_calc_mse_counts_one_launch_a_call(cuda):
+    """Each ``calc_mse`` (and ``rmse``) on CUDA tables is one launch, on the
+    kernel wrapper's count and in the innermost open span; an id outside
+    the tables raises."""
+    p = sse_tables(cuda, 300, 200, 16)
+    u, v, r = sse_ratings(cuda, 300, 200, 5000)
+    before = rs.rating_sse.launches
+    with recording() as recs:
+        with span("tmf.eval"):
+            calc_mse(p, u, v, r)
+            rmse(p, SimpleNamespace(u=u, v=v, r=r))
+    assert rs.rating_sse.launches == before + 2
+    assert recs[0]["attrs"]["launches"] == 2
+    bad = u.clone()
+    bad[4321] = 300
+    with pytest.raises(IndexError):
+        calc_mse(p, bad, v, r)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("alg", ["mf", "mf-nodense", "dpmf", "admf"])
+def test_training_loops_launch_once_an_eval(cuda, alg):
+    """Every test RMSE of an epoch, and each round's train MSE in dpmf, is
+    one launch of ``csrc/rating_sse.cu``: 3 epochs launch 3 times (dense,
+    gen-1 at dim 64, AdaptReg), 3 DP-SGLD rounds 6 times."""
+    ds = synthetic_ratings(600, 400, 30000, rank=3, noise=0.2, seed=1)
+    tr, te = ds.split(0.1, seed=2)
+    opts = dict(RESUME_RUNS[alg.split("-")[0]], gb=tr.mean_rating())
+    if alg == "mf-nodense":
+        opts["use_dense"] = False
+    before = rs.rating_sse.launches
+    train_any(TrainConfig(iters=3, **opts), tr, te, cuda)
+    assert rs.rating_sse.launches - before == (6 if alg == "dpmf" else 3)
