@@ -87,8 +87,8 @@ results: 3, 5, 24, 25 and 29; 7-10; 12 and 14; 16 and 18:
  13. the same at dim 8: the striped slot SGLD runner every round;
  14. phase 12's state written as the dpmf checkpoint {result}_3, read back
      with ``load_dpmf_binary`` and checked;
- 15. both AdaptReg plan families, on both walks, against the plain version
-     on the card, one whole segmented epoch each (segments and
+ 15. both AdaptReg plan families, on the tile walk, against the plain
+     version on the card, one whole segmented epoch each (segments and
      hypergradient steps, the same validation draws on both sides), both
      working types, losses 0 and 1, on 6x6 tiles at ML-10M density: gen-1
      plans at dim 128, tiles 512, batch 4096 (8/8 groups; also a negative
@@ -101,11 +101,11 @@ results: 3, 5, 24, 25 and 29; 7-10; 12 and 14; 16 and 18:
      launches each on the walk the route picks, tRMSE must be finite and
      fall, the lambdas stay >= 0 and move; eta times the plans' per-column
      duplicate maxima; the plans' units, critical paths and routes; then
-     one epoch from the initial state, the plain version, then the grid
-     and the tile walk in turns (grid, tile, tile, grid), with the same
-     validation draws, each held to the plain version; then the segments
-     alone, the walks in turns and the plain version once, timed with CUDA
-     events, and the tile walk's clocks per window step by phase;
+     one epoch from the initial state, the plain version, then the tile
+     walk twice, with the same validation draws, each held to the plain
+     version; then the segments alone, the tile walk twice and the plain
+     version once, timed with CUDA events, and the tile walk's clocks per
+     window step by phase;
  17. the same at dim 8 with the striped slot AdaptReg runner, 4 launches an
      epoch, at eta = min(0.002, 0.18 / the slot gate's duplicate counts);
  18. phase 16's state written as the {result}_3 checkpoint (the reference
@@ -114,11 +114,10 @@ results: 3, 5, 24, 25 and 29; 7-10; 12 and 14; 16 and 18:
      their plain versions on the card, both working types, on 6x6 tiles at
      ML-10M density: mega at pack 1 (dim 64, tiles 512, mxu_pred on) and
      pack 8 (dim 8, tiles 1024), each padded with all-sentinel batches, at
-     8/8 groups and at an eta whose windows span 2+ columns; free on both
-     walks (the tile walk and the grid walk) at dim 64, tiles 128, groups
-     8/8, 1/1, 8/1 and 4/2, saturation on and off, on a plan whose last
-     batch has sentinel columns, with the plan's units, critical path and
-     route;
+     8/8 groups and at an eta whose windows span 2+ columns; free on its
+     tile walk at dim 64, tiles 128, groups 8/8, 1/1, 8/1 and 4/2,
+     saturation on and off, on a plan whose last batch has sentinel
+     columns, with the plan's units, critical path and route;
  20. the mega path: ``MegaEpochRunner`` on the stand-in at dim 64 (pack 1,
      two plans, saturating, bf16), pad, 3 epochs from ``init_mf``'s tables
      at the CLI defaults' eta, trim: the runner's and ``cell_epoch``'s
@@ -128,12 +127,11 @@ results: 3, 5, 24, 25 and 29; 7-10; 12 and 14; 16 and 18:
      walks of ``cell_sgd.cu`` in turns as in phase 4;
  21. the free-column path the same way: ``FreeEpochRunner`` at dim 64 (its
      default balance, saturation and picked batch), counted on
-     ``FreeEpochRunner.launches`` and ``free_epoch.launches``, every epoch
-     on the walk the route picks; the plans' units, critical paths, cluster
-     sizes and routes; then epoch 1 from the same tables, the plain version
-     once, the grid and the tile walk in turns (grid, tile, tile, grid),
-     timed with CUDA events and each held to the plain version; the tile
-     walk at clusters of 1, 2, 4 and 8 blocks in turns; its clocks per
+     ``FreeEpochRunner.launches`` and ``free_epoch.launches``; the plans'
+     units, critical paths and cluster sizes; then epoch 1 from the same
+     tables, the plain version once and the tile walk twice, timed with
+     CUDA events and each held to the plain version; the tile walk at
+     clusters of 1, 2, 4 and 8 blocks in turns; its clocks per
      window step by phase (a ``-DTMF_TILE_CLOCKS`` build); then the same
      epoch once more as the one-user-tile window plan on ``cell_sgd.cu``,
      timed and held to the plain version, with ``--yardsticks`` only (no
@@ -192,9 +190,8 @@ MSE and test RMSE), or the phase fails.
 Each phase group prints its seconds. The last lines are the kernels' JSON
 summary (time, launches on the main path, bound; for ``rating_sse`` the
 time and bound of the DP-SGLD train set and the launches of phase 12's
-rounds; for the SGLD, AdaptReg
-and free-column kernels the walk the main path took, whose time and error
-the line gives; for ``phi_shard``, ``cell_sgd.cu`` on the item-sharded
+rounds; for the SGLD kernels the walk the main path took, whose time and
+error the line gives; for ``phi_shard``, ``cell_sgd.cu`` on the item-sharded
 path, the time, error and bound of one sub-epoch, shard 0 of epoch 1, and
 the shard count; for ``stream``, ``cell_sgd.cu`` on the streamed path, the
 same of epoch 1's first launch), the card's name and power limit, and
@@ -284,8 +281,8 @@ KERNELS = ("dense_cell", "cell_sgd", "sgld_cells", "adreg_cells",
 # float32, in different orders; the plain version sums each chunk's squared
 # errors in float32 (tests/test_torch_cuda.py: SSE_RTOL)
 SSE_RTOL = 5e-6
-# the two walks of csrc/sgld_cells.cu, csrc/adreg_cells.cu and
-# csrc/free_cells.cu (tpu_mf_torch/ops/tile_walk.py: WALKS)
+# the two walks of csrc/cell_sgd.cu and csrc/sgld_cells.cu
+# (tpu_mf_torch/ops/tile_walk.py: WALKS)
 WALKS = ("tile", "grid")
 # the free-column kernel's groups in phase 19 (user/item): one column a
 # window, whole batches, and windows of unequal widths
@@ -1701,7 +1698,7 @@ def admf_state(torch, ds, dim, gb, lam, tabs=None, seed=0):
 def adreg_epochs(torch, runner, state, eta, eta_reg, key, order,
                  samples=None, timed=None):
     """One AdaptReg epoch of ``runner`` from ``state`` per entry of
-    ``order`` (a walk, "tile" or "grid", or "plain"), the same validation
+    ``order`` ("tile", the kernel's walk, or "plain"), the same validation
     draws on every turn; returns {which: (fused tables, lambdas)} of each
     one's first turn and appends each turn's CUDA-event ms to
     ``timed[which]``."""
@@ -1711,8 +1708,7 @@ def adreg_epochs(torch, runner, state, eta, eta_reg, key, order,
         a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
         a.record()
         runner.epoch(tabs, eta, eta_reg, key, samples=samples,
-                     reference=which == "plain",
-                     walk=which if which in WALKS else None)
+                     reference=which == "plain")
         b.record()
         torch.cuda.synchronize()
         if timed is not None:
@@ -1743,10 +1739,10 @@ def binary(ds):
 
 
 def compare_adreg(torch, make, ds, va, tabs, dim, name, what, cases):
-    """An AdaptReg runner's kernel on each walk vs the plain version, one
+    """An AdaptReg runner's kernel (its tile walk) vs the plain version, one
     whole epoch (eta_reg 0.5, so the lambdas move) per working type, loss
     and (eta, lam) of ``cases(runner)``; returns the largest table error
-    per walk and working type."""
+    per working type."""
     errs = {}
     for mxu in ("float32", "bfloat16"):
         for loss in (0, 1):
@@ -1760,22 +1756,21 @@ def compare_adreg(torch, make, ds, va, tabs, dim, name, what, cases):
                     state = admf_state(torch, tr, dim, gb, lam, tabs)
                     lam0 = torch.full((4,), lam, device=DEVICE)
                     out = adreg_epochs(torch, r, state, eta, 0.5, 1,
-                                       ("plain",) + WALKS)
-                for walk in WALKS:
-                    err = max(float((a - b).abs().max()) for a, b in
-                              zip(out[walk][0], out["plain"][0]))
-                    errs[walk, mxu] = max(errs.get((walk, mxu), 0.0), err)
-                    desc = (f"{name} {walk} walk vs plain, {mxu}, loss "
-                            f"{loss}, groups {tg}/{pg} (eta {eta:.3g}, "
-                            f"eta*lam {eta * lam:.3g}), {what}, "
-                            f"{r.plan.u.shape[0]} batches in {r.segments} "
-                            f"segments, dim {dim}, {len(ds)} ratings")
-                    log(f"# phase 15: {desc}: max_abs_err {err:.3e} (atol "
-                        f"{ATOL_CELL[mxu]:g})")
-                    if not err <= ATOL_CELL[mxu]:
-                        raise AssertionError(f"{name} {walk} walk disagrees "
-                                             f"({mxu})")
-                    hold_lams(desc, out[walk][1], out["plain"][1], lam0, 15)
+                                       ("plain", "tile"))
+                err = max(float((a - b).abs().max()) for a, b in
+                          zip(out["tile"][0], out["plain"][0]))
+                errs[mxu] = max(errs.get(mxu, 0.0), err)
+                desc = (f"{name} tile walk vs plain, {mxu}, loss {loss}, "
+                        f"groups {tg}/{pg} (eta {eta:.3g}, eta*lam "
+                        f"{eta * lam:.3g}), {what}, {r.plan.u.shape[0]} "
+                        f"batches in {r.segments} segments, dim {dim}, "
+                        f"{len(ds)} ratings")
+                log(f"# phase 15: {desc}: max_abs_err {err:.3e} (atol "
+                    f"{ATOL_CELL[mxu]:g})")
+                if not err <= ATOL_CELL[mxu]:
+                    raise AssertionError(f"{name} tile walk disagrees "
+                                         f"({mxu})")
+                hold_lams(desc, out["tile"][1], out["plain"][1], lam0, 15)
     log_walk(15, name, r)
     return errs
 
@@ -1880,19 +1875,18 @@ def run_admf(torch, train, valid, test, phase, dim, eta):
 
 
 def time_segments(torch, runner, init, eta, n, phase, name):
-    """One epoch's segments alone from ``init``, the grid and the tile walk
-    in turns (grid, tile, tile, grid), then the plain version, each launch
-    timed with CUDA events: the lambdas stay at ``init``'s and the
-    hypergradient steps between segments are left out, as the bound leaves
-    them out; then the tile walk's clocks by phase (a clock build). Returns
-    the median summed ms of the routed walk and of the plain version, and
-    the bound."""
+    """One epoch's segments alone from ``init``, the tile walk twice, then
+    the plain version, each launch timed with CUDA events: the lambdas stay
+    at ``init``'s and the hypergradient steps between segments are left
+    out, as the bound leaves them out; then the tile walk's clocks by phase
+    (a clock build). Returns the median summed ms of the tile walk and of
+    the plain version, and the bound."""
     from tpu_mf_torch.ops import adreg_cells as tac
 
     plan = runner.materialize()._dev[0]
     tg, pg = runner.pick_theta_groups(eta), runner.pick_phi_groups(eta)
     seg = runner.seg_len(0)
-    times = {w: [] for w in WALKS + ("plain",)}
+    times = {"tile": [], "plain": []}
 
     def segments(theta, phi, walk, ev=None):
         for s in range(runner.segments):
@@ -1907,12 +1901,11 @@ def time_segments(torch, runner, init, eta, n, phase, name):
                 tac.adreg_segment(
                     theta, phi, plan, s * seg, (s + 1) * seg, eta,
                     runner.lams, runner.gb, runner.dim, tg, pg,
-                    runner.work_dtype, runner.loss,
-                    runner.walks[0] if walk == "tile" else None)
+                    runner.work_dtype, runner.loss, runner.walks[0])
             if ev:
                 ev[s][1].record()
 
-    for which in ("grid", "tile", "tile", "grid", "plain"):
+    for which in ("tile", "tile", "plain"):
         theta, phi = runner.pad(init)
         ev = [[torch.cuda.Event(enable_timing=True) for _ in range(2)]
               for _ in range(runner.segments)]
@@ -1926,16 +1919,16 @@ def time_segments(torch, runner, init, eta, n, phase, name):
     tile_clocks(torch, tac, "adreg", phase, name, runner,
                 lambda tabs: segments(*tabs, "tile"),
                 lambda: runner.pad(init))
-    return (median(times[runner.route()]), median(times["plain"]),
+    return (median(times["tile"]), median(times["plain"]),
             adreg_bound(runner, plan, n, runner.dim, eta))
 
 
 def time_admf_epoch(torch, cfg, runner, train, test, phase, name):
     """One full epoch of the main path's runner from the initial state,
-    plain version, then the grid and the tile walk in turns (grid, tile,
-    tile, grid), with the same validation draws (epoch 1's), timed with
-    CUDA events and each walk held to the plain version; then the segments
-    alone (``time_segments``), whose times it returns."""
+    plain version, then the tile walk twice, with the same validation
+    draws (epoch 1's), timed with CUDA events and the tile walk held to the
+    plain version; then the segments alone (``time_segments``), whose
+    times it returns."""
     from tpu_mf_torch.models.mf import rmse
     from tpu_mf_torch.ops.sgd_cells import _dup_stats
     from tpu_mf_torch.train.loop import _admf_key
@@ -1958,31 +1951,27 @@ def time_admf_epoch(torch, cfg, runner, train, test, phase, name):
     runner.pad(init)
     samples = torch.stack([runner.draw_samples(key, s)
                            for s in range(runner.segments)])
-    times = {w: [] for w in ("plain",) + WALKS}
+    times = {"plain": [], "tile": []}
     out = adreg_epochs(torch, runner, init, eta, eta_reg, key,
-                       ("plain", "grid", "tile", "tile", "grid"), samples,
-                       times)
+                       ("plain", "tile", "tile"), samples, times)
     n = len(train)
     for what, ts in times.items():
         log(f"# phase {phase}: {name} {what}: epoch ms (hypergradient steps "
             f"included) {[round(x, 3) for x in ts]}, rating updates/s "
             f"{[round(n / (x / 1e3)) for x in ts]}")
     want = runner.trim(out["plain"][0])
-    errs = {}
-    for walk in WALKS:
-        got = runner.trim(out[walk][0])
-        errs[walk] = hold(f"{name} epoch 1 (eta {eta:g}), {walk} walk vs "
-                          "plain", got, want, init.params, ATOL_CELL_FULL,
-                          phase)
-        hold_lams(f"{name} epoch 1, {walk} walk", out[walk][1],
-                  out["plain"][1], torch.stack(list(init[5:])), phase)
-        rm_k, rm_p = rmse(got, test), rmse(want, test)
-        log(f"# phase {phase}: {name} tRMSE after epoch 1: {walk} walk "
-            f"{rm_k:.6f} plain {rm_p:.6f}")
-        if not abs(rm_k - rm_p) <= 1e-3:
-            raise AssertionError(f"{name}: tRMSE of the {walk} walk and "
-                                 "plain disagree")
-    return errs, time_segments(torch, runner, init, eta, n, phase, name)
+    got = runner.trim(out["tile"][0])
+    hold(f"{name} epoch 1 (eta {eta:g}), tile walk vs plain", got, want,
+         init.params, ATOL_CELL_FULL, phase)
+    hold_lams(f"{name} epoch 1, tile walk", out["tile"][1], out["plain"][1],
+              torch.stack(list(init[5:])), phase)
+    rm_k, rm_p = rmse(got, test), rmse(want, test)
+    log(f"# phase {phase}: {name} tRMSE after epoch 1: tile walk "
+        f"{rm_k:.6f} plain {rm_p:.6f}")
+    if not abs(rm_k - rm_p) <= 1e-3:
+        raise AssertionError(f"{name}: tRMSE of the tile walk and plain "
+                             "disagree")
+    return time_segments(torch, runner, init, eta, n, phase, name)
 
 
 def phase_admf(torch, train, valid, test, phase, dim, eta, family, runner):
@@ -2002,12 +1991,11 @@ def phase_admf(torch, train, valid, test, phase, dim, eta, family, runner):
     for k in per_epoch:
         if k != family:
             only(per_epoch, k, ())
-    _, timed = time_admf_epoch(torch, cfg, runner, train, test, phase, family)
-    route = runner.route()
-    if walks[route] != sum(per_epoch[family]):
+    timed = time_admf_epoch(torch, cfg, runner, train, test, phase, family)
+    if walks != {"tile": sum(per_epoch[family]), "grid": 0}:
         raise AssertionError(f"{family}: {walks} launches by walk, not all "
-                             f"on the routed {route} walk")
-    return cfg, state, launches, timed, route
+                             "on the tile walk")
+    return cfg, state, launches, timed
 
 
 def phase_slot_admf(torch, tas, tsl, atrain, avalid, test):
@@ -2029,10 +2017,10 @@ def phase_slot_admf(torch, tas, tsl, atrain, avalid, test):
         f"{probe._vdup_max[8]}: eta {eta8:g} (host statistics in "
         f"{time.perf_counter() - t:.1f} s)")
     if eta8 >= 1e-5:
-        _, _, launches, timed, route = phase_admf(
+        _, _, launches, timed = phase_admf(
             torch, atrain, avalid, test, 17, DIM_AD8, eta8, "slot_adreg",
             probe)
-        return launches, timed, route
+        return launches, timed
     # not forced past the gate: the main path at dim 8 is gen-1's, and the
     # slot kernel is only timed against its plain version
     log(f"# phase 17: the slot gate refuses every eta >= 1e-5 at dim "
@@ -2042,7 +2030,7 @@ def phase_slot_admf(torch, tas, tsl, atrain, avalid, test):
     return 0, time_segments(
         torch, probe, admf_state(torch, atrain, DIM_AD8, cfg.gb, LAM_AD,
                                  seed=cfg.seed),
-        ETA_AD, len(atrain), 17, "slot_adreg"), probe.route()
+        ETA_AD, len(atrain), 17, "slot_adreg")
 
 
 def phase_checkpoint_admf(torch, cfg, state, nu, nv):
@@ -2073,8 +2061,9 @@ def phase_compare_mega_free(torch, tc, tpk, tm, tf, rng):
     tiles at ML-10M density. Mega at pack 1 (dim 64, tiles 512, mxu_pred
     on) and pack 8 (dim 8, tiles 1024), each padded with all-sentinel
     batches, at 8/8 groups and at an eta whose windows span 2+ columns;
-    free at dim 64, tiles 128, groups 8/8, 1/1 and 8/1, saturation on and
-    off, on a plan whose last batch has sentinel columns."""
+    free (its tile walk) at dim 64, tiles 128, groups 8/8, 1/1, 8/1 and
+    4/2, saturation on and off, on a plan whose last batch has sentinel
+    columns."""
     from tpu_mf_torch.models.mf import params_from_numpy
 
     errs = {"mega": {}, "free": {}}
@@ -2112,23 +2101,21 @@ def phase_compare_mega_free(torch, tc, tpk, tm, tf, rng):
                 hyper = (eta, lam, gb, max(1.0, 0.2 / eta), DIM, *groups,
                          r.work_dtype, saturate, r.mxu_pred)
                 tf.free_epoch_reference(*want, r._dev[0], *hyper)
-                for walk in WALKS:
-                    got = tuple(t.clone() for t in start)
-                    tf.free_epoch(*got, r._dev[0], *hyper, walk=walk)
-                    torch.cuda.synchronize()
-                    err = max(float((a - b).abs().max())
-                              for a, b in zip(got, want))
-                    key = walk, mxu
-                    errs["free"][key] = max(errs["free"].get(key, 0.0), err)
-                    log(f"# phase 19: free vs plain, {walk} walk, {mxu}, "
-                        f"groups {groups[0]}/{groups[1]}, saturate "
-                        f"{saturate}, batch {r.batch} at tiles 128x128, "
-                        f"{r.plan.u.shape[0]} batches ({sentinel} sentinel "
-                        f"columns), dim {DIM}, {n} ratings: max_abs_err "
-                        f"{err:.3e} (atol {ATOL_CELL[mxu]:g})")
-                    if not err <= ATOL_CELL[mxu]:
-                        raise AssertionError(
-                            f"free ({walk} walk) disagrees ({mxu}): {err}")
+                got = tuple(t.clone() for t in start)
+                tf.free_epoch(*got, r._dev[0], *hyper)
+                torch.cuda.synchronize()
+                err = max(float((a - b).abs().max())
+                          for a, b in zip(got, want))
+                errs["free"][mxu] = max(errs["free"].get(mxu, 0.0), err)
+                log(f"# phase 19: free vs plain, tile walk, {mxu}, groups "
+                    f"{groups[0]}/{groups[1]}, saturate {saturate}, batch "
+                    f"{r.batch} at tiles 128x128, {r.plan.u.shape[0]} "
+                    f"batches ({sentinel} sentinel columns), dim {DIM}, {n} "
+                    f"ratings: max_abs_err {err:.3e} (atol "
+                    f"{ATOL_CELL[mxu]:g})")
+                if not err <= ATOL_CELL[mxu]:
+                    raise AssertionError(
+                        f"free (tile walk) disagrees ({mxu}): {err}")
     return errs
 
 
@@ -2222,11 +2209,10 @@ def phase_mega(torch, tc, tm, tf, train, test):
 def phase_free(torch, tc, tm, tf, train, test, yardsticks=False):
     """Phase 21: ``FreeEpochRunner`` at dim 64 (tiles 128, picked batch,
     balance and saturation on, mxu_pred on) on the stand-in, two plans,
-    bf16, 3 epochs from ``init_mf``'s tables at the CLI defaults on the
-    routed walk; then epoch 1 on both walks and the plain version
-    (``time_free_walks``); with ``yardsticks`` the same epoch as the
-    one-user-tile window plan on ``csrc/cell_sgd.cu``
-    (``free_window_yardstick``)."""
+    bf16, 3 epochs from ``init_mf``'s tables at the CLI defaults; then
+    epoch 1 on the tile walk and the plain version (``time_free_walks``);
+    with ``yardsticks`` the same epoch as the one-user-tile window plan on
+    ``csrc/cell_sgd.cu`` (``free_window_yardstick``)."""
     from tpu_mf_torch.config import TrainConfig
     from tpu_mf_torch.models.mf import init_mf
 
@@ -2252,12 +2238,12 @@ def phase_free(torch, tc, tm, tf, train, test, yardsticks=False):
     eta, it = cfg.eta_at(1), 1
     tg, pg = r.pick_theta_groups(eta), r.pick_phi_groups(eta)
     cap = max(1.0, 0.2 / eta)
-    timed, want, walk = time_free_walks(torch, tf, cfg, r, train, test, init,
-                                        it, eta, tg, pg, cap)
+    timed, want = time_free_walks(torch, tf, cfg, r, train, test, init, it,
+                                  eta, tg, pg, cap)
     if yardsticks:
         free_window_yardstick(torch, tc, tf, cfg, r, init, it, eta, tg, pg,
                               cap, timed, want)
-    return launches, timed, walk
+    return launches, timed
 
 
 def free_window_yardstick(torch, tc, tf, cfg, r, init, it, eta, tg, pg, cap,
@@ -2290,19 +2276,18 @@ def free_window_yardstick(torch, tc, tf, cfg, r, init, it, eta, tg, pg, cap,
 def time_free_walks(torch, tf, cfg, r, train, test, init, it, eta, tg, pg,
                     cap):
     """Epoch ``it`` of ``FreeEpochRunner`` ``r`` from ``init``: the plain
-    version once, then the grid and the tile walk in turns (grid, tile,
-    tile, grid), timed with CUDA events, each walk held to the plain
-    version; the tile walk at each cluster size of FREE_PROBE in turns,
-    each held too; the tile walk's clocks per window step by phase (a
-    ``-DTMF_TILE_CLOCKS`` build). Returns the routed walk's and the plain
-    version's median ms with the bound, the plain version's tables and the
-    routed walk."""
+    version once, then the tile walk twice, timed with CUDA events and
+    held to the plain version; the tile walk at each cluster size of
+    FREE_PROBE in turns, each held too; the tile walk's clocks per window
+    step by phase (a ``-DTMF_TILE_CLOCKS`` build). Returns the tile walk's
+    and the plain version's median ms with the bound, and the plain
+    version's tables."""
     from tpu_mf_torch.models.mf import rmse
 
     idx = it % len(r._dev)
     plan = r._dev[idx]
     gb = float(init.gb)
-    times, out = {w: [] for w in ("plain",) + WALKS}, {}
+    times, out = {"plain": [], "tile": []}, {}
 
     def run(which, tabs):
         if which == "plain":
@@ -2310,7 +2295,7 @@ def time_free_walks(torch, tf, cfg, r, train, test, init, it, eta, tg, pg,
                                     tg, pg, r.work_dtype, r.saturate,
                                     r.mxu_pred)
         else:
-            r.epoch(tabs, eta, cfg.lam, gb, epoch_idx=it, walk=which)
+            r.epoch(tabs, eta, cfg.lam, gb, epoch_idx=it)
 
     def timed_run(which):
         tabs = r.pad(init)
@@ -2321,7 +2306,7 @@ def time_free_walks(torch, tf, cfg, r, train, test, init, it, eta, tg, pg,
         torch.cuda.synchronize()
         return a.elapsed_time(b), r.trim(tabs)
 
-    for which in ("plain", "grid", "tile", "tile", "grid"):
+    for which in ("plain", "tile", "tile"):
         ms, tabs = timed_run(which)
         times[which].append(ms)
         out.setdefault(which, tabs)
@@ -2329,17 +2314,14 @@ def time_free_walks(torch, tf, cfg, r, train, test, init, it, eta, tg, pg,
     for what, ts in times.items():
         log(f"# phase 21: free {what}: epoch ms {[round(x, 3) for x in ts]}, "
             f"rating updates/s {[round(n / (x / 1e3)) for x in ts]}")
-    for walk in WALKS:
-        hold(f"free epoch {it} (eta {eta:g}, groups {tg}/{pg}, "
-             f"{plan.u.shape[0]} batches, columns of {plan.u.shape[2]}), "
-             f"{walk} walk vs plain", out[walk], out["plain"], init,
-             ATOL_CELL_FULL, 21)
-        rm_k, rm_p = rmse(out[walk], test), rmse(out["plain"], test)
-        log(f"# phase 21: free tRMSE {walk} walk {rm_k:.6f} plain "
-            f"{rm_p:.6f}")
-        if not abs(rm_k - rm_p) <= 1e-3:
-            raise AssertionError(f"free: tRMSE of the {walk} walk and plain "
-                                 "disagree")
+    hold(f"free epoch {it} (eta {eta:g}, groups {tg}/{pg}, "
+         f"{plan.u.shape[0]} batches, columns of {plan.u.shape[2]}), tile "
+         "walk vs plain", out["tile"], out["plain"], init, ATOL_CELL_FULL, 21)
+    rm_k, rm_p = rmse(out["tile"], test), rmse(out["plain"], test)
+    log(f"# phase 21: free tRMSE tile walk {rm_k:.6f} plain {rm_p:.6f}")
+    if not abs(rm_k - rm_p) <= 1e-3:
+        raise AssertionError("free: tRMSE of the tile walk and plain "
+                             "disagree")
     routed = plan.walk
     probe = {c: [] for c in FREE_PROBE}
     try:
@@ -2351,15 +2333,15 @@ def time_free_walks(torch, tf, cfg, r, train, test, init, it, eta, tg, pg,
                  init, ATOL_CELL_FULL, 21)
     finally:
         r._dev[idx] = plan
-    log(f"# phase 21: free tile walk by cluster size (routed "
+    log(f"# phase 21: free tile walk by cluster size (picked "
         f"{routed.cluster}), epoch ms in turns: " + "; ".join(
             f"{c}: {[round(x, 3) for x in ts]}" for c, ts in probe.items()))
     tile_clocks(torch, tf, "free", 21, "free", r,
                 lambda tabs: run("tile", tabs), lambda: r.pad(init))
     p = r.plan
-    return (median(times[routed.route]), median(times["plain"]),
+    return (median(times["tile"]), median(times["plain"]),
             free_bound(plan, p.n_gu * p.tile_u, p.n_gv * p.tile_v, n,
-                       cfg.dim)), out["plain"], routed.route
+                       cfg.dim)), out["plain"]
 
 
 # ---- item-sharded epochs (phases 22-23), resume and bf16 tables (24-25) ----
@@ -3140,9 +3122,8 @@ def phase_rating_sse(torch, train, test):
 
 def entry(name, replaces, launches, err, timed, source=None, walk=None):
     """A kernel's line of the JSON summary; ``walk`` names the walk of
-    ``csrc/sgld_cells.cu``, ``csrc/adreg_cells.cu`` or ``csrc/free_cells.cu``
-    that the main path took (and that ``ms`` and ``max_abs_err`` are
-    of)."""
+    ``csrc/sgld_cells.cu`` that the main path took (and that ``ms`` and
+    ``max_abs_err`` are of)."""
     ms, plain_ms, (bound_ms, bound_by) = timed
     out = {"name": name, "route": "cuda",
            "source": source or f"tpu_mf_torch/csrc/{name}.cu",
@@ -3313,23 +3294,23 @@ def main(argv=None) -> int:
     if want(16, 17):
         atrain, avalid = train.split(0.05, seed=3)
     if want(16):
-        acfg, astate, ad_launches, ad_t, ad_walk = phase_admf(
+        acfg, astate, ad_launches, ad_t = phase_admf(
             torch, atrain, avalid, test, 16, DIM_AD, ETA_AD, "adreg", None)
         phase_checkpoint_admf(torch, acfg, astate, atrain.nu, atrain.nv)
         lap("16, 18")
     if want(17):
-        slot_ad_launches, slot_ad_t, slot_ad_walk = phase_slot_admf(
+        slot_ad_launches, slot_ad_t = phase_slot_admf(
             torch, tas, tsl, atrain, avalid, test)
         lap("17")
     if ran(15, 16):
         ent["adreg"] = entry(
             "adreg", "tpu_mf/ops/pallas_adreg.py:46", ad_launches,
-            ad_errs["adreg"][ad_walk, "bfloat16"], ad_t, adreg_src, ad_walk)
+            ad_errs["adreg"]["bfloat16"], ad_t, adreg_src)
     if ran(15, 17):
         ent["slot_adreg"] = entry(
             "slot_adreg", "tpu_mf/ops/pallas_adreg_slot.py:51",
-            slot_ad_launches, ad_errs["slot_adreg"][slot_ad_walk, "bfloat16"],
-            slot_ad_t, adreg_src, slot_ad_walk)
+            slot_ad_launches, ad_errs["slot_adreg"]["bfloat16"], slot_ad_t,
+            adreg_src)
     if want(19):
         mf_errs = phase_compare_mega_free(torch, tc, tpk, tm, tf,
                                           np.random.default_rng(5))
@@ -3342,14 +3323,13 @@ def main(argv=None) -> int:
                 "mega", "tpu_mf/ops/pallas_sgd_mega.py:105", mega_launches,
                 mf_errs["mega"]["bfloat16"], mega_t, cell_src)
     if want(21):
-        free_launches, free_t, free_walk = phase_free(torch, tc, tm, tf,
-                                                      train, test, yardsticks)
+        free_launches, free_t = phase_free(torch, tc, tm, tf, train, test,
+                                           yardsticks)
         lap("21")
         if want(19):
             ent["free"] = entry(
                 "free", "tpu_mf/ops/pallas_sgd_free.py:183", free_launches,
-                mf_errs["free"][free_walk, "bfloat16"], free_t, free_src,
-                free_walk)
+                mf_errs["free"]["bfloat16"], free_t, free_src)
     if want(22):
         phase_compare_sharded(torch, np.random.default_rng(6))
         lap("22")

@@ -719,19 +719,20 @@ def test_train_admf_on_gpu_runs_the_kernel(cuda, dim, family):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("walk", ["tile", "grid"])
+@pytest.mark.parametrize("walk", ["tile"])
 @pytest.mark.parametrize("case", sorted(ADREG_CASES))
 @pytest.mark.parametrize("family,dim", [("gen1", 40), ("slot", 8),
                                         ("stripe", 26)])
 @pytest.mark.parametrize("mxu,atol", [("float32", 1e-4), ("bfloat16", 2e-3)])
 def test_adreg_walks_match_reference(cuda, mxu, atol, family, dim, case,
                                      walk):
-    """Each AdaptReg walk of csrc/adreg_cells.cu forced on a whole
+    """The tile walk of csrc/adreg_cells.cu (its only walk) on a whole
     segmented epoch against the plain version (the tolerances of
     test_adreg_kernel_epoch_matches_reference): gen-1 plans padded to whole
     segments (the last batch all padding, and padding columns at each user
     tile's end), slot plans at 2+ column windows, striped plans at the
-    groups eta 0.05 picks; the launches count on the forced walk."""
+    groups eta 0.05 picks; the launches count on the walk, none on the
+    grid key."""
     loss, eta_lam = ADREG_CASES[case]
     ds, va = adreg_sets(loss)
     r = ADREG[family](ds, va, dim, seed=7, mxu=mxu, loss=loss, device=cuda)
@@ -750,9 +751,10 @@ def test_adreg_walks_match_reference(cuda, mxu, atol, family, dim, case,
     r.epoch(want, eta, 0.5, 3, reference=True)
     lam_want, r.lams = r.lams, lam0.clone()
     before = dict(tac.adreg_segment.walks)
-    r.epoch(got, eta, 0.5, 3, walk=walk)
+    r.epoch(got, eta, 0.5, 3)
     torch.cuda.synchronize()
-    assert tac.adreg_segment.walks[walk] == before[walk] + r.segments
+    assert tac.adreg_segment.walks == {**before,
+                                       walk: before[walk] + r.segments}
     for a, b in zip(got, want):
         assert float((a - b).abs().max()) <= atol
     moved = float((lam_want - lam0).abs().max())
@@ -835,7 +837,7 @@ def test_tile_walk_on_clusters_of_16(cuda, family):
         want = tuple(t.clone() for t in got)
         r.epoch(want, 0.05, 0.5, 3, reference=True)
         r.lams = lam0
-        r.epoch(got, 0.05, 0.5, 3, walk="tile")
+        r.epoch(got, 0.05, 0.5, 3)
         torch.cuda.synchronize()
         for a, b in zip(got, want):
             assert float((a - b).abs().max()) <= 1e-4
@@ -869,8 +871,8 @@ def test_tile_walk_on_clusters_of_16(cuda, family):
 @pytest.mark.cuda
 def test_tile_walk_launch_failures_raise(cuda):
     """A tile walk the card cannot launch raises: clusters of 32 blocks
-    (past the 16 a cluster can hold) and a walk on another device's
-    counters."""
+    (past the 16 a cluster can hold), a walk on another device's counters,
+    and no walk at all."""
     from tpu_mf_torch.ops import tile_walk as tw
 
     ds, va = adreg_sets(0)
@@ -885,6 +887,9 @@ def test_tile_walk_launch_failures_raise(cuda):
             tac.adreg_segment(*tabs, r._dev[0], 0, r.seg_len(), 0.05, r.lams,
                               r.gb, 40, walk=bad)
             torch.cuda.synchronize()
+    with pytest.raises(ValueError, match="tile walk"):
+        tac.adreg_segment(*tabs, r._dev[0], 0, r.seg_len(), 0.05, r.lams,
+                          r.gb, 40)
 
 
 def zipf_free_data():
@@ -900,7 +905,7 @@ def sentinel_free_data():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("walk", ["tile", "grid"])
+@pytest.mark.parametrize("walk", ["tile"])
 @pytest.mark.parametrize("saturate", [False, True])
 @pytest.mark.parametrize("data,groups", [
     ("zipf", (8, 8)), ("zipf", (1, 1)), ("zipf", (2, 4)),
@@ -910,7 +915,7 @@ def sentinel_free_data():
     ("bfloat16", False, 2e-3)])
 def test_free_kernel_matches_reference(cuda, mxu, mxu_pred, atol, data,
                                        groups, saturate, walk):
-    """free_epoch (csrc/free_cells.cu) on each walk against
+    """free_epoch (csrc/free_cells.cu) on its tile walk against
     free_epoch_reference on the card, at dim 40, per-column user and item
     tiles, pinned groups, with saturation on and off, and on a plan whose
     trailing sentinel columns hold a tile's last touch; the window-plan
@@ -926,15 +931,13 @@ def test_free_kernel_matches_reference(cuda, mxu, mxu_pred, atol, data,
     base = r.pad(params_from_numpy(*tabs, device=cuda))
     ref = tuple(t.clone() for t in base)
     before, runs = tf.free_epoch.launches, tf.FreeEpochRunner.launches
-    by_walk = tf.free_epoch.walks[walk]
     tf.free_epoch_reference(*ref, r._dev[0], 0.02, 0.005, 3.0, 10.0, r.dim,
                             *groups, r.work_dtype, saturate, mxu_pred)
-    r.epoch(base, 0.02, 0.005, 3.0, walk=walk)
+    assert r.route() == walk
+    r.epoch(base, 0.02, 0.005, 3.0)
     torch.cuda.synchronize()
     assert tf.free_epoch.launches == before + 1
-    assert tf.free_epoch.walks[walk] == by_walk + 1
     assert tf.FreeEpochRunner.launches == runs + 1
-    assert r.last_walk == walk
     for a, b in zip(base, ref):
         assert float((a - b).abs().max()) <= atol
     start = r.pad(params_from_numpy(*tabs, device=cuda))
@@ -968,7 +971,7 @@ def test_free_walk_counters_across_launches(cuda, cluster):
                                 r.pick_theta_groups(eta),
                                 r.pick_phi_groups(eta), r.work_dtype,
                                 r.saturate, r.mxu_pred)
-        r.epoch(got, eta, 0.005, 3.0, epoch_idx=it, walk="tile")
+        r.epoch(got, eta, 0.005, 3.0, epoch_idx=it)
         torch.cuda.synchronize()
         units = plan.walk.walks[0].n_units
         assert cnt.gen == gen + 1
@@ -983,7 +986,7 @@ def test_free_walk_counters_across_launches(cuda, cluster):
 def test_free_walk_launch_failures_raise(cuda):
     """A free tile walk the card cannot launch raises and counts nothing:
     clusters of 32 blocks (past the 16 a cluster can hold) and a walk on
-    another device's counters; an unknown walk is refused."""
+    another device's counters."""
     from tpu_mf_torch.ops import tile_walk as tw
 
     r = tf.FreeEpochRunner(zipf_free_data(), batch=1024, device=cuda)
@@ -997,11 +1000,8 @@ def test_free_walk_launch_failures_raise(cuda):
                          counters=tw.TileWalkCounters(1, 1, "cpu")),
                       ValueError)):
         with pytest.raises(err):
-            tf.free_epoch(theta, phi, plan._replace(walk=bad), *args,
-                          walk="tile")
+            tf.free_epoch(theta, phi, plan._replace(walk=bad), *args)
             torch.cuda.synchronize()
-    with pytest.raises(ValueError):
-        tf.free_epoch(theta, phi, plan, *args, walk="diagonal")
     assert tf.free_epoch.launches == before
 
 

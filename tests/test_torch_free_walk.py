@@ -1,11 +1,11 @@
 """The tile walk of the free-column kernel ``csrc/free_cells.cu`` on the
 CPU: the planner on free plans (units, waits, releases, both sides' apply
 flags, the critical path against a brute-force DAG depth), the planner on
-window plans against the same brute force, the route's throughput term and
-cluster size, and a replay of the walk's protocol in random interleavings
-of units (``tests/test_torch_tile_walk.py``'s ``run_launch``) against the
-plan-order plain version and against tpu_mf's interpret-mode
-``_free_kernel``."""
+window plans against the same brute force, the cluster size model's
+throughput term, the runner's one walk, and a replay of the walk's
+protocol in random interleavings of units
+(``tests/test_torch_tile_walk.py``'s ``run_launch``) against the plan-order
+plain version and against tpu_mf's interpret-mode ``_free_kernel``."""
 
 import numpy as np
 import pytest
@@ -16,6 +16,7 @@ from tpu_mf.data.coo import synthetic_ratings as jax_synthetic_ratings
 from tpu_mf.ops import pallas_sgd_free as jf
 from tpu_mf_torch.data.coo import synthetic_ratings
 from tpu_mf_torch.models.mf import params_from_numpy
+from tpu_mf_torch.ops import adreg_cells as tac
 from tpu_mf_torch.ops import sgd_free as tf
 from tpu_mf_torch.ops import tile_walk as tw
 from tpu_mf_torch.ops.sgd_cells import pad_plan_nb, prepare_cells
@@ -209,8 +210,7 @@ def test_free_route_throughput_term():
     tiles) is throughput-bound: larger clusters fit fewer at once, so a
     small one wins and the walk runs ~n_windows / resident steps. A plan
     whose units all share one item tile is chain-bound at every size: the
-    cluster of the cheapest step wins, and the grid walk, whose steps are
-    cheaper still, takes it; the independent units take the tile walk."""
+    cluster of the cheapest step wins."""
     n_gu = 400
     gu = np.repeat(np.arange(n_gu), 2)
     w = np.ones((2 * n_gu, 256, 8), np.float32)
@@ -233,24 +233,20 @@ def test_free_route_throughput_term():
                                 rows=256) for c in tw.FREE_CLUSTERS}
     assert tw.free_cluster_size(wide, 256) == min(rounds, key=rounds.get)
     assert tw.free_cluster_size(wide, 256) <= 2
-    assert tw.tile_walk_route(wide, 1, fixed=tw.FREE_STEP_ROUNDS[1],
-                              rows=256) == "tile"
     chain = walk_of(np.zeros((2 * n_gu, 8)))
     assert chain.crit == chain.n_windows == 6400
     step = {c: tw.FREE_STEP_ROUNDS[c] + -(-256 // (32 * c)) * 2
             for c in tw.FREE_CLUSTERS}
     assert all(tw.walk_steps(chain, c) == 6400 for c in tw.FREE_CLUSTERS)
     assert tw.free_cluster_size(chain, 256) == min(step, key=step.get)
-    c = tw.free_cluster_size(chain, 256)
-    assert tw.tile_walk_route(chain, c, fixed=tw.FREE_STEP_ROUNDS[c],
-                              rows=256) == "grid"
 
 
 def test_free_runner_builds_walks_on_shared_counters():
     """materialize builds each rotated plan's walk on the runner's one
     TileWalkCounters, with both sides' flags at every grouping, a cluster
-    size of FREE_CLUSTERS and the route of its model; CPU epochs run the
-    plain version whatever walk is asked."""
+    size of FREE_CLUSTERS (free_cluster_size's) and route "tile", the
+    kernel's only walk; CPU epochs run the plain version, the same on
+    either plan's tables."""
     ds = zipf_data()
     r = free_runner(ds, n_plans=2).materialize()
     walks = [p.walk for p in r._dev]
@@ -258,18 +254,35 @@ def test_free_runner_builds_walks_on_shared_counters():
     for dw in walks:
         assert set(dw.tap_u) == set(dw.tap) == {1, 2, 4, 8}
         assert dw.cluster in tw.FREE_CLUSTERS
-        assert dw.route == tw.tile_walk_route(
-            dw.walks, dw.cluster, fixed=tw.FREE_STEP_ROUNDS[dw.cluster],
-            rows=64)
-    assert r.route(1) == walks[1].route
+        assert dw.cluster == tw.free_cluster_size(dw.walks[0], 64)
+        assert dw.route == "tile"
+    assert r.route(1) == walks[1].route == "tile"
     tabs = np_tables(ds.nu, ds.nv, 8, seed=3)
     a = r.pad(params_from_numpy(*tabs, device="cpu"))
     b = tuple(t.clone() for t in a)
-    r.epoch(a, ETA, LAM, 2.0, walk="tile")
-    r.epoch(b, ETA, LAM, 2.0, walk="grid")
+    r.epoch(a, ETA, LAM, 2.0)
+    tf.free_epoch_reference(*b, r._dev[0], ETA, LAM, 2.0,
+                            max(1.0, 0.2 / ETA), r.dim,
+                            r.pick_theta_groups(ETA), r.pick_phi_groups(ETA),
+                            r.work_dtype, r.saturate, r.mxu_pred)
     for x, y in zip(a, b):
         assert torch.equal(x, y)
-    assert r.last_walk is None  # no launch on the CPU
+
+
+def test_free_runner_takes_the_tile_walk_on_a_chain_bound_plan():
+    """A free plan whose units all share one item tile is chain-bound: the
+    route model of the two walks sends it to a grid walk (its steps are
+    the cheaper), but the free-column kernel has the tile walk only, so the
+    runner and its plan's walk say "tile". The AdaptReg wrapper keeps its
+    launch counts under every walk name (WALKS), which the benchmark
+    reads."""
+    r = free_runner(sentinel_data(), tile=128, batch=256).materialize()
+    dw = r._dev[0].walk
+    assert dw.walks[0].crit == dw.walks[0].n_windows  # one chain
+    assert tw.tile_walk_route(dw.walks, dw.cluster,
+                              rows=r.plan.tile_u + r.plan.tile_v) == "grid"
+    assert r.route() == dw.route == "tile"
+    assert set(tac.adreg_segment.walks) == set(tw.WALKS)
 
 
 # ---- the replay -------------------------------------------------------------

@@ -1056,9 +1056,10 @@ def cell_route(w, tile_u, tile_v):
                                     "slot_sgld", "cell", "phi_shard"])
 def test_runners_build_walks_and_routes(family):
     """Every runner builds its plans' tile walks at materialize, on one set
-    of counters per runner, with a route; a launch range of a plan is
-    found by its batches; CPU epochs run the plain version whatever walk
-    is asked, and an unknown walk is refused on the card's path."""
+    of counters per runner, with a route: "tile" for the AdaptReg runners
+    (their kernel's only walk), the route model's for the SGLD runners and
+    ``csrc/cell_sgd.cu``'s; a launch range of a plan is found by its
+    batches."""
     ds, va = zipf_sets()
     if family == "adreg":
         r = tac.AdRegCellRunner(ds, va, tile_u=32, tile_v=32, batch=64,
@@ -1106,7 +1107,9 @@ def test_runners_build_walks_and_routes(family):
     assert len({id(w.counters) for w in walks}) == 1
     for w in walks:
         assert w.route in tw.WALKS
-        if family not in ("cell", "phi_shard"):
+        if family in ("adreg", "slot_adreg"):  # the kernel's only walk
+            assert w.route == "tile"
+        elif family in ("sgld", "slot_sgld"):
             assert w.route == tw.tile_walk_route(w.walks)
         assert w.unit_off[-1] == w.unit_c0.shape[0]
     assert r.route() == walks[0].route

@@ -40,22 +40,16 @@
 // window machinery, specialized: no saturation, no rounded prediction,
 // per-lane decay, the activation, a batch range, lambdas on the device.
 //
-// Two walks run a segment's window steps (ops/tile_walk.py: tile_walk_route
-// picks one per plan):
-//   - the grid walk (adreg_segment_kernel): one cooperative launch on one
-//     block of 32 warps per SM; every window step is a scatter phase, a grid
-//     sync, an apply phase, a grid sync, one step after another;
-//   - the tile walk (adreg_walk_kernel, tile_walk.cuh): one launch of
-//     thread-block clusters; each unit (a run of real columns on one user
-//     tile) runs its steps on one cluster, waiting only on the ready
-//     counters of the tiles it shares with earlier units, so units on
-//     disjoint tiles run side by side and the steps' chain shrinks to the
-//     plan's critical path.
+// The tile walk runs a segment's window steps (adreg_walk_kernel,
+// tile_walk.cuh, ops/tile_walk.py): one launch of thread-block clusters;
+// each unit (a run of real columns on one user tile) runs its steps on one
+// cluster, waiting only on the ready counters of the tiles it shares with
+// earlier units, so units on disjoint tiles run side by side and the steps'
+// chain shrinks to the plan's critical path.
 //
 // What bounds it on the H100: the chain of window steps, each waiting on
-// its row reads and atomics (and, on the grid walk, two grid syncs). Per
-// applied row it adds two exps; the logs of the four bases are taken once
-// per launch.
+// its row reads and atomics. Per applied row it adds two exps; the logs of
+// the four bases are taken once per launch.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -69,9 +63,8 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kWarps = 32;      // warps per block of the persistent kernel
-constexpr int kCached = 4;      // 32-lane row chunks held in registers (dim <= 125)
-constexpr int kWalkCached = 5;  // the tile walk's: dim <= 157 in one trip
+constexpr int kWarps = 32;  // warps per block
+constexpr int kCached = 5;  // 32-lane row chunks held in registers (dim <= 157)
 
 template <bool kBF16>
 __device__ __forceinline__ float to_work(float x) {
@@ -81,7 +74,8 @@ __device__ __forceinline__ float to_work(float x) {
     return x;
 }
 
-// Rows and deltas change between phases on other SMs: read them from L2.
+// Rows and deltas change between window steps on other SMs: read them from
+// L2.
 __device__ __forceinline__ float ld(const float* p) { return __ldcg(p); }
 
 // One rating slot of the plan: weight, rating, tile-local ids, item tile.
@@ -98,8 +92,8 @@ __device__ __forceinline__ Slot load_slot(const int* u, const int* v,
 }
 
 // One slot, one warp: gather both rows, predict, scatter the deltas. The
-// first kC 32-lane chunks of both rows stay in registers.
-template <bool kBF16, int kC = kCached>
+// first kCached 32-lane chunks of both rows stay in registers.
+template <bool kBF16>
 __device__ __forceinline__ void step_slot(
     const float* theta, const float* phi, const Slot& sl, int gut,
     float* dtheta, float* acc, int tile_u, int tile_v, int lanes, int dim,
@@ -111,17 +105,17 @@ __device__ __forceinline__ void step_slot(
   const long long vrow = (long long)gvt * tile_v + vl;
   const float* pr = phi + vrow * lanes;
   const int n = dim + 2;  // lanes >= dim + 2 are zero in both rows
-  float tc[kC], pc[kC];
+  float tc[kCached], pc[kCached];
   float part = 0.f;
 #pragma unroll
-  for (int j = 0; j < kC; ++j) {
+  for (int j = 0; j < kCached; ++j) {
     const int l = lane + 32 * j;
     tc[j] = l < n ? to_work<kBF16>(ld(tr + l)) : 0.f;
     pc[j] = l < n ? to_work<kBF16>(ld(pr + l)) : 0.f;
   }
 #pragma unroll
-  for (int j = 0; j < kC; ++j) part += tc[j] * pc[j];
-  for (int l = lane + 32 * kC; l < n; l += 32)
+  for (int j = 0; j < kCached; ++j) part += tc[j] * pc[j];
+  for (int l = lane + 32 * kCached; l < n; l += 32)
     part += to_work<kBF16>(ld(tr + l)) * to_work<kBF16>(ld(pr + l));
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) part += __shfl_xor_sync(0xffffffffu, part, o);
@@ -133,13 +127,13 @@ __device__ __forceinline__ void step_slot(
   float* du = dtheta + (long long)ul * lanes;
   float* dv = acc + vrow * lanes;
 #pragma unroll
-  for (int j = 0; j < kC; ++j) {
+  for (int j = 0; j < kCached; ++j) {
     const int l = lane + 32 * j;
     if (l >= n) break;
     if (l != dim + 1) atomicAdd(du + l, to_work<kBF16>(err * pc[j]));
     if (l != dim) atomicAdd(dv + l, to_work<kBF16>(err * tc[j]));
   }
-  for (int l = lane + 32 * kC; l < n; l += 32) {
+  for (int l = lane + 32 * kCached; l < n; l += 32) {
     const float t = to_work<kBF16>(ld(tr + l)), p = to_work<kBF16>(ld(pr + l));
     if (l != dim + 1) atomicAdd(du + l, to_work<kBF16>(err * p));
     if (l != dim) atomicAdd(dv + l, to_work<kBF16>(err * t));
@@ -167,15 +161,14 @@ __device__ __forceinline__ LaneDecay lane_decay(float eta, float lam_fac,
 }
 
 // Decay one table row per lane and add its window delta, then clear the
-// delta. The count and the first kC chunks arrive in one round trip.
-template <int kC = kCached>
+// delta. The count and the first kCached chunks arrive in one round trip.
 __device__ __forceinline__ void apply_row(float* tr, float* dr, bool user,
                                           int dim, LaneDecay ad, int lane) {
   const int n = dim + 3;
   const float k = ld(dr + dim + 2);
-  float dc[kC], rc[kC];
+  float dc[kCached], rc[kCached];
 #pragma unroll
-  for (int j = 0; j < kC; ++j) {
+  for (int j = 0; j < kCached; ++j) {
     const int l = lane + 32 * j;
     dc[j] = l < n ? ld(dr + l) : 0.f;
     rc[j] = l < n ? ld(tr + l) : 0.f;
@@ -188,13 +181,13 @@ __device__ __forceinline__ void apply_row(float* tr, float* dr, bool user,
   if (ad.neg_bias && odd) mb = -mb;
   const int bias = user ? dim : dim + 1;
 #pragma unroll
-  for (int j = 0; j < kC; ++j) {
+  for (int j = 0; j < kCached; ++j) {
     const int l = lane + 32 * j;
     if (l >= n) break;
     if (l < dim || l == bias) tr[l] = rc[j] * (l < dim ? mf : mb) + dc[j];
     dr[l] = 0.f;
   }
-  for (int l = lane + 32 * kC; l < n; l += 32) {
+  for (int l = lane + 32 * kCached; l < n; l += 32) {
     if (l < dim || l == bias)
       tr[l] = ld(tr + l) * (l < dim ? mf : mb) + ld(dr + l);
     dr[l] = 0.f;
@@ -203,106 +196,16 @@ __device__ __forceinline__ void apply_row(float* tr, float* dr, bool user,
 
 struct SegmentArgs {
   float* theta; float* phi; const int* u; const int* v; const float* r;
-  const float* w; const int* gu; const int* gv; const int* ap; float* dtheta;
-  float* acc;
+  const float* w; const int* gv; float* acc;
   const float* lams;  // lam_u, lam_v, lam_bu, lam_bv on the device
-  int b0, b1, sub, tile_u, tile_v, lanes, dim, tg_w, pg_w, loss;
+  int sub, tile_u, tile_v, lanes, dim, tg_w, pg_w, loss;
   float eta, gb;
 };
 
-// The batches [b0, b1) in one cooperative launch: every window step is a
-// scatter phase over all slots of its columns, a grid-wide sync, and (where a
-// group ends) an apply phase over the rows of the tiles that apply, then a
-// sync.
-template <bool kBF16>
-__global__ void __launch_bounds__(32 * kWarps)
-adreg_segment_kernel(SegmentArgs a) {
-  cg::grid_group grid = cg::this_grid();
-  const int lane = threadIdx.x % 32;
-  const int gwarp = blockIdx.x * kWarps + threadIdx.x / 32;
-  const int n_warps = gridDim.x * kWarps;
-  const int step = a.tg_w < a.pg_w ? a.tg_w : a.pg_w;
-  const LaneDecay dec_u = lane_decay(a.eta, __ldg(a.lams + 0),
-                                     __ldg(a.lams + 2));
-  const LaneDecay dec_v = lane_decay(a.eta, __ldg(a.lams + 1),
-                                     __ldg(a.lams + 3));
-  // when a step has at most one slot per warp, each warp loads its slot of
-  // the next step before the grid syncs, so a step waits only on its rows
-  Slot next{};
-  bool have_next = false;
-  for (int i = a.b0; i < a.b1; ++i) {
-    const int gut = a.gu[i];
-    for (int c0 = 0; c0 < 8; c0 += step) {
-      const int width = step * a.sub;
-      for (int q = gwarp; q < width; q += n_warps) {
-        const int col = i * 8 + c0 + q / a.sub;
-        const Slot sl = have_next && q == gwarp
-            ? next : load_slot(a.u, a.v, a.r, a.w, a.gv, col,
-                               (long long)col * a.sub + q % a.sub);
-        step_slot<kBF16>(a.theta, a.phi, sl, gut, a.dtheta, a.acc, a.tile_u,
-                         a.tile_v, a.lanes, a.dim, a.eta, a.gb, a.loss, lane);
-      }
-      const int ni = c0 + step < 8 ? i : i + 1;
-      const int nc = c0 + step < 8 ? c0 + step : 0;
-      have_next = ni < a.b1 && gwarp < width && width <= n_warps;
-      if (have_next) {
-        const int col = ni * 8 + nc + gwarp / a.sub;
-        next = load_slot(a.u, a.v, a.r, a.w, a.gv, col,
-                         (long long)col * a.sub + gwarp % a.sub);
-      }
-      grid.sync();
-      const int end = c0 + step;
-      const int n_pc = end % a.pg_w == 0 ? a.pg_w : 0;
-      const int n_th = end % a.tg_w == 0 ? 1 : 0;
-      if (n_pc + n_th == 0) continue;
-      const int total = n_pc * a.tile_v + n_th * a.tile_u;
-      for (int q = gwarp; q < total; q += n_warps) {
-        const bool user = q >= n_pc * a.tile_v;
-        float* tab;
-        float* d;
-        if (user) {
-          const int row = q - n_pc * a.tile_v;
-          tab = a.theta + ((long long)gut * a.tile_u + row) * a.lanes;
-          d = a.dtheta + (long long)row * a.lanes;
-        } else {
-          const int col = i * 8 + end - a.pg_w + q / a.tile_v;
-          if (a.ap[col] == 0) continue;
-          const long long off =
-              ((long long)a.gv[col] * a.tile_v + q % a.tile_v) * a.lanes;
-          tab = a.phi + off;
-          d = a.acc + off;
-        }
-        apply_row(tab, d, user, a.dim, user ? dec_u : dec_v, lane);
-      }
-      grid.sync();
-    }
-  }
-}
-
-template <bool kBF16>
-int run_segment(const SegmentArgs& args, cudaStream_t stream) {
-  auto kernel = adreg_segment_kernel<kBF16>;
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                        32 * kWarps, 0);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
-  SegmentArgs a = args;
-  void* params[] = {&a};
-  // one block of 32 warps per SM, as csrc/cell_sgd.cu
-  err = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(kernel), dim3(sms),
-                                    dim3(32 * kWarps), params, 0, stream);
-  return static_cast<int>(err);
-}
-
-// The tile walk (tile_walk.cuh, ops/tile_walk.py): the same window steps,
-// each unit (a run of real columns on one user tile) on one cluster of C
-// blocks. Per window step of `step` columns: each block's threads wait on
-// the item tiles the unit touches first in the step; the cluster's warps
+// The tile walk (tile_walk.cuh, ops/tile_walk.py): a segment's window
+// steps, each unit (a run of real columns on one user tile) on one cluster
+// of C blocks. Per window step of `step` columns: each block's threads wait
+// on the item tiles the unit touches first in the step; the cluster's warps
 // scatter the step's real slots, each warp loading its next slot before it
 // works on this one; at a group end (or the unit's last step) a cluster
 // barrier, the applies of the user tile (into the cluster's own dtheta
@@ -374,9 +277,9 @@ adreg_walk_kernel(SegmentArgs a, tile_walk::Walk w) {
         Slot sl = fetch(cw);
         for (int q = cw; q < step * a.sub; q += n_cw) {
           const Slot next = fetch(q + n_cw);
-          step_slot<kBF16, kWalkCached>(a.theta, a.phi, sl, gut, dth, a.acc,
-                                        a.tile_u, a.tile_v, a.lanes, a.dim,
-                                        a.eta, a.gb, a.loss, lane);
+          step_slot<kBF16>(a.theta, a.phi, sl, gut, dth, a.acc, a.tile_u,
+                           a.tile_v, a.lanes, a.dim, a.eta, a.gb, a.loss,
+                           lane);
           sl = next;
         }
         dirty = true;
@@ -404,8 +307,7 @@ adreg_walk_kernel(SegmentArgs a, tile_walk::Walk w) {
           tab = a.phi + off;
           d = a.acc + off;
         }
-        apply_row<kWalkCached>(tab, d, user, a.dim, user ? dec_u : dec_v,
-                               lane);
+        apply_row(tab, d, user, a.dim, user ? dec_u : dec_v, lane);
       }
       if (th) dirty = false;
       TW_TICK(5);
@@ -430,48 +332,38 @@ bool valid_groups(int g) { return g == 1 || g == 2 || g == 4 || g == 8; }
 
 }  // namespace
 
-// One AdaptReg segment: the plan batches [b0, b1), in place on theta/phi,
-// launched on `stream`. The plan arrays are csrc/cell_sgd.cu's: u, v, r, w
-// (nb, 8, sub), one column contiguous; gu (nb), gv and ap (nb, 8). lams
-// holds lam_u, lam_v, lam_bu, lam_bv (float32, on the device). dtheta
-// (tile_u x lanes) and acc (phi's shape) must be zero on entry and are zero
-// again on return. work: 0 = f32, 1 = bf16; loss: 0 = least squares, 1 =
-// logistic. `walk` (a tile_walk::WalkLaunch, or null for the grid walk)
-// runs the segment on the tile walk: its units are the segment's, b0/b1 and
-// dtheta are then unused, and its tap holds the real columns' apply flags
-// for phi_groups. Returns 0 or the CUDA error code.
+// One AdaptReg segment on the tile walk, in place on theta/phi, launched
+// on `stream`. The plan arrays are csrc/cell_sgd.cu's: u, v, r, w
+// (nb, 8, sub), one column contiguous; gv (nb, 8). lams holds lam_u, lam_v,
+// lam_bu, lam_bv (float32, on the device). acc (phi's shape) must be zero
+// on entry and is zero again on return. work: 0 = f32, 1 = bf16; loss: 0 =
+// least squares, 1 = logistic. `walk` is a tile_walk::WalkLaunch of the
+// segment's units (its dtheta slices zero on entry and on return; its tap
+// the real columns' apply flags for phi_groups); a null walk or tap is
+// refused. Returns 0 or the CUDA error code.
 extern "C" int tmf_adreg_segment(void* theta, void* phi, const void* u,
                                  const void* v, const void* r, const void* w,
-                                 const void* gu, const void* gv,
-                                 const void* ap, void* dtheta, void* acc,
-                                 const void* lams, int b0, int b1, int sub,
-                                 int tile_u, int tile_v, int lanes, int dim,
-                                 int theta_groups, int phi_groups, int work,
-                                 int loss, float eta, float gb,
+                                 const void* gv, void* acc, const void* lams,
+                                 int sub, int tile_u, int tile_v, int lanes,
+                                 int dim, int theta_groups, int phi_groups,
+                                 int work, int loss, float eta, float gb,
                                  const void* walk, void* stream) {
   if (!valid_groups(theta_groups) || !valid_groups(phi_groups) ||
-      dim + 3 > lanes || sub <= 0 || b0 < 0 || b1 < b0 || lams == nullptr ||
+      dim + 3 > lanes || sub <= 0 || lams == nullptr || walk == nullptr ||
       (loss != 0 && loss != 1) || (work != 0 && work != 1))
     return static_cast<int>(cudaErrorInvalidValue);
+  const auto& l = *static_cast<const tile_walk::WalkLaunch*>(walk);
+  if (l.tap == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   SegmentArgs a{static_cast<float*>(theta), static_cast<float*>(phi),
                 static_cast<const int*>(u), static_cast<const int*>(v),
                 static_cast<const float*>(r), static_cast<const float*>(w),
-                static_cast<const int*>(gu), static_cast<const int*>(gv),
-                static_cast<const int*>(ap), static_cast<float*>(dtheta),
-                static_cast<float*>(acc), static_cast<const float*>(lams),
-                b0, b1, sub, tile_u, tile_v, lanes, dim, 8 / theta_groups,
-                8 / phi_groups, loss, eta, gb};
+                static_cast<const int*>(gv), static_cast<float*>(acc),
+                static_cast<const float*>(lams), sub, tile_u, tile_v, lanes,
+                dim, 8 / theta_groups, 8 / phi_groups, loss, eta, gb};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (walk != nullptr) {
-    const auto& l = *static_cast<const tile_walk::WalkLaunch*>(walk);
-    if (l.tap == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-    if (work == 0)
-      return tile_walk::launch(adreg_walk_kernel<false>, a, l, 32 * kWarps,
-                               st);
-    return tile_walk::launch(adreg_walk_kernel<true>, a, l, 32 * kWarps, st);
-  }
-  if (work == 0) return run_segment<false>(a, st);
-  return run_segment<true>(a, st);
+  if (work == 0)
+    return tile_walk::launch(adreg_walk_kernel<false>, a, l, 32 * kWarps, st);
+  return tile_walk::launch(adreg_walk_kernel<true>, a, l, 32 * kWarps, st);
 }
 
 // The most clusters of `cluster` blocks of the tile walk (work: 0 = f32,

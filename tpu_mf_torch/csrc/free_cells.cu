@@ -15,14 +15,14 @@
 //     dtheta[u] += err * p,   dphi[v] += err * t,   cnt lane (dim + 2) += w
 //
 // Windows. Both sides defer alike: user deltas sum over a window of
-// wu = 8 / groups_u columns into acc_u (theta's shape), item deltas over
-// wv = 8 / groups_v columns into acc_v (phi's shape), and at a window's end
-// each tile applies at the last column of the window that touches it (the
-// plan's ap_u / ap_v flags, set on sentinel columns too). Every column reads
-// both tables as they stood at the start of its windows, so the columns
-// between two window ends of either side (min(wu, wv) of them) are
-// independent: they run as one "window step". At 8 groups a window is one
-// column and every column applies. At an apply a row touched k times becomes
+// wu = 8 / groups_u columns, item deltas over wv = 8 / groups_v columns,
+// and at a window's end each tile applies at the last real column of the
+// window that touches it (the walk's flags, ops/tile_walk.py:
+// tile_apply_flags on each side). Every column reads both tables as they
+// stood at the start of its windows, so the columns between two window
+// ends of either side (min(wu, wv) of them) are independent: they run as
+// one "window step". At 8 groups a window is one column and every column
+// applies. At an apply a row touched k times becomes
 //
 //     row * (1 + keep * (exp(k ln(1 - eta lam)) - 1)) + keep * d * s,
 //     s = min(1, cap / max(k, 1)) when saturating, else 1,
@@ -30,50 +30,39 @@
 // with keep = lane <= dim (theta) or lane < dim | lane == dim + 1 (phi).
 // Rows untouched in the window (k = 0) are left alone, which is the same
 // result. Two columns of one step may share a tile: their atomics land in
-// the same scratch rows, and the count lane carries k for both.
+// the same scratch rows, and the count lane carries k for both. Atomics
+// sum in no fixed order, so the kernel matches its plain version
+// (ops/sgd_free.py: free_epoch_reference) to a tolerance.
 //
 // Rounding follows the TPU kernel in the bf16 working type: rows are rounded
-// to bf16 before the gather, t*p before the f32 row sum when mxu_pred is on,
-// and the scatter operands err*p and err*t; every sum is f32. The f32
+// to bf16 before the gather, t*p before the f32 row sum when mxu_pred is
+// on, and the scatter operands err*p and err*t; every sum is f32. The f32
 // working type rounds nothing.
 //
-// Two walks run the epoch (ops/tile_walk.py: tile_walk_route picks one per
-// plan, ops/sgd_free.py: free_epoch launches it):
-//
-// The grid walk (free_epoch_kernel) is csrc/cell_sgd.cu's window walk with
-// a user tile per column: one cooperative launch runs the whole epoch on
-// one block of 32 warps per SM. Each window step is a scatter phase (one
-// warp per rating slot: gather both rows, warp-reduce the prediction, f32
-// atomics of the deltas and the count into acc_u and acc_v), a grid-wide
-// sync, and where a window of either side ends an apply phase (one warp per
-// row of each flagged tile of the ending window: 128 rows per applying
-// column and side) and a second sync. The flags are read once per applied
-// row, in the apply phase only. Rows and deltas change between phases on
-// other SMs, so they are read through L2 (ld.global.cg). Atomics sum in no
-// fixed order, so the kernel matches its plain version to a tolerance.
-//
-// The tile walk (free_walk_kernel, tile_walk.cuh) runs the same window
-// steps as units: runs of real columns on one user tile. The plan deals its
-// columns in cell order, user tile first, so each user tile is one unit
-// (546 at ML-10M, ~84 columns each, one per item tile in order), and unit k
-// can take item tile j once unit k - 1 has released it: a wavefront ~630
-// steps deep in place of 46,088 grid-synced steps. Each unit runs on one
-// thread-block cluster, its user deltas in the cluster's dtheta slice, its
-// item deltas in acc_v; applies follow the walk's flags on both sides (the
-// real columns' last touch of a tile in its window), and a unit releases an
+// The tile walk (free_walk_kernel, tile_walk.cuh; ops/sgd_free.py:
+// free_epoch launches it) runs the window steps as units: runs of real
+// columns on one user tile. The plan deals its columns in cell order, user
+// tile first, so each user tile is one unit (546 at ML-10M, ~84 columns
+// each, one per item tile in order), and unit k can take item tile j once
+// unit k - 1 has released it: a wavefront ~630 steps deep in place of
+// 46,088 steps one after another. Each unit runs on one thread-block
+// cluster, its user deltas in the cluster's dtheta slice, its item deltas
+// in acc_v; applies follow the walk's flags on both sides (the real
+// columns' last touch of a tile in its window), and a unit releases an
 // item tile after its last touch of it, also where a later unit's column in
-// the same window holds the apply. The walk's chain is short beside its
-// windows, so the clusters the card holds at once bound it as much as the
-// chain does: ops/tile_walk.py: free_cluster_size picks the cluster size.
+// the same window holds the apply. Rows and deltas change between window
+// steps on other SMs, so they are read through L2 (ld.global.cg). The
+// walk's chain is short beside its windows, so the clusters the card holds
+// at once bound it as much as the chain does: ops/tile_walk.py:
+// free_cluster_size picks the cluster size.
 //
 // What bounds it on the H100. Per rating two row reads and 2 * (dim + 3)
 // atomic adds: at ML-10M shape (dim 64) a few GB an epoch, milliseconds at
 // L2 rates. But the stand-in's window duplicates keep 8 groups a side at
 // every eta from 0.02 to 0.005: an epoch is ~46k column steps of 256 slots,
-// each with an apply of two tiles. Latency bounds both walks: on the grid
-// walk the chain of row reads, atomics and two grid syncs of each of the
-// 46k steps, on the tile walk the same round trips (and two cluster
-// barriers) of each step of a cluster's share of the units.
+// each with an apply of two tiles. Latency bounds the walk: the round trips
+// of row reads, atomics and two cluster barriers of each step of a
+// cluster's share of the units.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -87,11 +76,10 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kWarps = 32;      // warps per block of the persistent kernel
-constexpr int kCached = 4;      // 32-lane row chunks held in registers (dim <= 125)
-// The tile walk runs a slot, and an applied row, on half a warp: two at
-// once a warp, each with kHalfCached chunks of 16 lanes in registers
-// (dim <= 93 in one trip).
+constexpr int kWarps = 32;  // warps per block
+// A slot, and an applied row, runs on half a warp: two at once a warp,
+// each with kHalfCached chunks of 16 lanes in registers (dim <= 93 in one
+// trip).
 constexpr int kHalf = 16, kHalfCached = 6;
 
 template <bool kBF16>
@@ -102,198 +90,31 @@ __device__ __forceinline__ float to_work(float x) {
     return x;
 }
 
-// Rows and deltas change between phases on other SMs: read them from L2.
+// Rows and deltas change between window steps on other SMs: read them from
+// L2.
 __device__ __forceinline__ float ld(const float* p) { return __ldcg(p); }
 
 struct FreeArgs {
   float* theta; float* phi; const int* u; const int* v; const float* r;
-  const float* w; const int* gu; const int* gv; const int* ap_u;
-  const int* ap_v; float* acc_u; float* acc_v;
-  int nb, sub, tile_u, tile_v, lanes, dim, wu, wv, saturate;
+  const float* w;
+  const int* ap_u;  // the walk's apply flags of the real columns, per side
+  const int* ap_v;
+  float* acc_v;
+  int sub, tile_u, tile_v, lanes, dim, wu, wv, saturate;
   float eta, gb, cap, ln_decay;
 };
 
-// One rating slot of the plan: weight, rating, user row (global on the grid
-// walk, tile-local on the tile walk) and global item row.
+// One rating slot of the plan: weight, rating, tile-local user row and
+// global item row.
 struct Slot {
   float w, r;
   long long urow, vrow;
 };
 
-__device__ __forceinline__ Slot load_slot(const FreeArgs& a, int col,
-                                          long long slot) {
-  return Slot{a.w[slot], a.r[slot],
-              (long long)a.gu[col] * a.tile_u + a.u[slot],
-              (long long)a.gv[col] * a.tile_v + a.v[slot]};
-}
-
-// One slot, one warp: gather both rows, predict, scatter the deltas. The
-// first kCached 32-lane chunks of both rows stay in registers.
-template <bool kBF16, bool kMxuPred>
-__device__ __forceinline__ void step_slot(const FreeArgs& a, const Slot& sl,
-                                          int lane) {
-  if (sl.w == 0.f) return;  // padded slot (sentinel ids): contributes nothing
-  const int lanes = a.lanes, dim = a.dim;
-  const float* tr = a.theta + sl.urow * lanes;
-  const float* pr = a.phi + sl.vrow * lanes;
-  const int n = dim + 2;  // lanes >= dim + 2 are zero in both rows
-  float tc[kCached], pc[kCached];
-  float part = 0.f;
-#pragma unroll
-  for (int j = 0; j < kCached; ++j) {
-    const int l = lane + 32 * j;
-    tc[j] = l < n ? to_work<kBF16>(ld(tr + l)) : 0.f;
-    pc[j] = l < n ? to_work<kBF16>(ld(pr + l)) : 0.f;
-  }
-#pragma unroll
-  for (int j = 0; j < kCached; ++j)
-    part += kMxuPred ? to_work<kBF16>(tc[j] * pc[j]) : tc[j] * pc[j];
-  for (int l = lane + 32 * kCached; l < n; l += 32) {
-    const float t = to_work<kBF16>(ld(tr + l)), p = to_work<kBF16>(ld(pr + l));
-    part += kMxuPred ? to_work<kBF16>(t * p) : t * p;
-  }
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) part += __shfl_xor_sync(0xffffffffu, part, o);
-  const float err = (a.eta * sl.w) * (sl.r - (part + a.gb));
-  // each side's one-lane takes the other side's bias term, which its apply
-  // never reads: skip those two adds
-  float* du = a.acc_u + sl.urow * lanes;
-  float* dv = a.acc_v + sl.vrow * lanes;
-#pragma unroll
-  for (int j = 0; j < kCached; ++j) {
-    const int l = lane + 32 * j;
-    if (l >= n) break;
-    if (l != dim + 1) atomicAdd(du + l, to_work<kBF16>(err * pc[j]));
-    if (l != dim) atomicAdd(dv + l, to_work<kBF16>(err * tc[j]));
-  }
-  for (int l = lane + 32 * kCached; l < n; l += 32) {
-    const float t = to_work<kBF16>(ld(tr + l)), p = to_work<kBF16>(ld(pr + l));
-    if (l != dim + 1) atomicAdd(du + l, to_work<kBF16>(err * p));
-    if (l != dim) atomicAdd(dv + l, to_work<kBF16>(err * t));
-  }
-  if (lane == 0) {  // counts: the count lane of both rows is zero, so w
-    atomicAdd(du + dim + 2, sl.w);
-    atomicAdd(dv + dim + 2, sl.w);
-  }
-}
-
-// Decay one table row and add its window delta (saturated), then clear the
-// delta. The count and the first kCached chunks arrive in one round trip.
-__device__ __forceinline__ void apply_row(float* tr, float* dr, bool user,
-                                          int dim, float ln_decay, float cap,
-                                          int saturate, int lane) {
-  const int n = dim + 3;
-  const float k = ld(dr + dim + 2);
-  float dc[kCached], rc[kCached];
-#pragma unroll
-  for (int j = 0; j < kCached; ++j) {
-    const int l = lane + 32 * j;
-    dc[j] = l < n ? ld(dr + l) : 0.f;
-    rc[j] = l < n ? ld(tr + l) : 0.f;
-  }
-  __syncwarp();  // every lane has read k before lane (dim + 2) % 32 clears it
-  if (k == 0.f) return;  // untouched in this window
-  const float dec = expf(k * ln_decay);
-  const float sat = saturate ? fminf(1.f, cap / fmaxf(k, 1.f)) : 1.f;
-#pragma unroll
-  for (int j = 0; j < kCached; ++j) {
-    const int l = lane + 32 * j;
-    if (l >= n) break;
-    const bool keep = user ? l <= dim : (l < dim || l == dim + 1);
-    if (keep) tr[l] = rc[j] * (1.f + (dec - 1.f)) + (saturate ? dc[j] * sat : dc[j]);
-    dr[l] = 0.f;
-  }
-  for (int l = lane + 32 * kCached; l < n; l += 32) {
-    const bool keep = user ? l <= dim : (l < dim || l == dim + 1);
-    if (keep) {
-      float dl = ld(dr + l);
-      if (saturate) dl = dl * sat;
-      tr[l] = ld(tr + l) * (1.f + (dec - 1.f)) + dl;
-    }
-    dr[l] = 0.f;
-  }
-}
-
-// One epoch in one cooperative launch: every window step is a scatter phase
-// over all slots of its columns, a grid-wide sync, and (where a window of
-// either side ends) an apply phase over the rows of the flagged tiles of
-// the ending windows, then a sync.
-template <bool kBF16, bool kMxuPred>
-__global__ void __launch_bounds__(32 * kWarps)
-free_epoch_kernel(FreeArgs a) {
-  cg::grid_group grid = cg::this_grid();
-  const int lane = threadIdx.x % 32;
-  const int gwarp = blockIdx.x * kWarps + threadIdx.x / 32;
-  const int n_warps = gridDim.x * kWarps;
-  const int step = a.wu < a.wv ? a.wu : a.wv;
-  const int n_cols = a.nb * 8;
-  const int width = step * a.sub;
-  // when a step has at most one slot per warp, each warp loads its slot of
-  // the next step before the grid syncs, so a step waits only on its rows
-  Slot next{};
-  bool have_next = false;
-  for (int c0 = 0; c0 < n_cols; c0 += step) {
-    for (int q = gwarp; q < width; q += n_warps) {
-      const int col = c0 + q / a.sub;
-      const Slot sl = have_next && q == gwarp
-          ? next : load_slot(a, col, (long long)col * a.sub + q % a.sub);
-      step_slot<kBF16, kMxuPred>(a, sl, lane);
-    }
-    const int end = c0 + step;  // columns [0, end) are scattered
-    have_next = end < n_cols && gwarp < width && width <= n_warps;
-    if (have_next) {
-      const int col = end + gwarp / a.sub;
-      next = load_slot(a, col, (long long)col * a.sub + gwarp % a.sub);
-    }
-    grid.sync();
-    // 8 % wu == 0, so a window ends where the global column count does
-    const int n_u = end % a.wu == 0 ? a.wu : 0;
-    const int n_v = end % a.wv == 0 ? a.wv : 0;
-    if (n_u + n_v == 0) continue;
-    const int rows_u = n_u * a.tile_u;
-    const int total = rows_u + n_v * a.tile_v;
-    for (int q = gwarp; q < total; q += n_warps) {
-      const bool user = q < rows_u;
-      long long off;
-      if (user) {
-        const int col = end - a.wu + q / a.tile_u;
-        if (a.ap_u[col] == 0) continue;
-        off = ((long long)a.gu[col] * a.tile_u + q % a.tile_u) * a.lanes;
-      } else {
-        const int qv = q - rows_u;
-        const int col = end - a.wv + qv / a.tile_v;
-        if (a.ap_v[col] == 0) continue;
-        off = ((long long)a.gv[col] * a.tile_v + qv % a.tile_v) * a.lanes;
-      }
-      apply_row((user ? a.theta : a.phi) + off, (user ? a.acc_u : a.acc_v) + off,
-                user, a.dim, a.ln_decay, a.cap, a.saturate, lane);
-    }
-    grid.sync();
-  }
-}
-
-template <bool kBF16, bool kMxuPred>
-int run_epoch(const FreeArgs& args, cudaStream_t stream) {
-  auto kernel = free_epoch_kernel<kBF16, kMxuPred>;
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                        32 * kWarps, 0);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
-  FreeArgs a = args;
-  void* params[] = {&a};
-  err = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(kernel), dim3(sms),
-                                    dim3(32 * kWarps), params, 0, stream);
-  return static_cast<int>(err);
-}
-
-// One slot of the tile walk on half a warp (hl: the lane's index in its
-// half; `live`: a real slot, else the lanes only join the reduction's
-// shuffles): step_slot's arithmetic, kHalfCached chunks in registers.
+// One slot on half a warp (hl: the lane's index in its half; `live`: a
+// real slot, else the lanes only join the reduction's shuffles): gather
+// both rows, predict, scatter the deltas; the first kHalfCached 16-lane
+// chunks of both rows stay in registers.
 template <bool kBF16, bool kMxuPred>
 __device__ __forceinline__ void step_half(const float* tr, const float* pr,
                                           float* du, float* dv, bool live,
@@ -338,8 +159,9 @@ __device__ __forceinline__ void step_half(const float* tr, const float* pr,
   }
 }
 
-// One applied row of the tile walk on half a warp (`live`: a row to
-// apply): apply_row's arithmetic, kHalfCached chunks in registers.
+// One applied row on half a warp (`live`: a row to apply): decay it and
+// add its window delta (saturated), then clear the delta. The count and
+// the first kHalfCached chunks arrive in one round trip.
 __device__ __forceinline__ void apply_half(float* tr, float* dr, bool live,
                                            bool user, int dim, float ln_decay,
                                            float cap, int saturate, int hl) {
@@ -384,19 +206,19 @@ __device__ __forceinline__ void cluster_barrier(cg::cluster_group& cl, int cs) {
     cl.sync();
 }
 
-// The tile walk (tile_walk.cuh, ops/tile_walk.py): the grid walk's window
-// steps, each unit (the run of real columns on one user tile) on one cluster
-// of C blocks. Per window step of `step` columns, [lo, hi) of the unit's:
-// each block's threads wait on the item tiles the unit touches first in the
-// step; the cluster's warps scatter the step's real slots (user deltas into
-// the cluster's dtheta slice, item deltas into acc_v), two at once a warp,
-// each warp loading its next two before it works on these; a cluster
-// barrier; where the step holds an apply flag (a.ap_u, a.ap_v: the walk's
-// flags of the real columns), the applies of the unit's user tile and of
-// the flagged item tiles, two rows at once a warp, and another cluster
-// barrier; then the releases of the item tiles
-// whose last touch by the unit lies in the step. The user tile is released
-// when the unit ends, after its last apply. Rows and deltas stay in L2.
+// The tile walk (tile_walk.cuh, ops/tile_walk.py): the epoch's window
+// steps, each unit (the run of real columns on one user tile) on one
+// cluster of C blocks. Per window step of `step` columns, [lo, hi) of the
+// unit's: each block's threads wait on the item tiles the unit touches
+// first in the step; the cluster's warps scatter the step's real slots
+// (user deltas into the cluster's dtheta slice, item deltas into acc_v),
+// two at once a warp, each warp loading its next two before it works on
+// these; a cluster barrier; where the step holds an apply flag (a.ap_u,
+// a.ap_v: the walk's flags of the real columns), the applies of the unit's
+// user tile and of the flagged item tiles, two rows at once a warp, and
+// another cluster barrier; then the releases of the item tiles whose last
+// touch by the unit lies in the step. The user tile is released when the
+// unit ends, after its last apply. Rows and deltas stay in L2.
 template <bool kBF16, bool kMxuPred>
 __global__ void __launch_bounds__(32 * kWarps, 1)
 free_walk_kernel(FreeArgs a, tile_walk::Walk w) {
@@ -517,45 +339,15 @@ bool valid_groups(int g) { return g == 1 || g == 2 || g == 4 || g == 8; }
 
 }  // namespace
 
-// One free-column epoch, in place on theta/phi, launched on `stream`. The
-// plan arrays u, v, r, w are (nb, 8, sub), one column contiguous; gu, gv,
-// ap_u and ap_v are (nb, 8). acc_u (theta's shape) and acc_v (phi's shape)
-// must be zero on entry and are zero again on return. work: 0 = f32,
-// 1 = bf16. Returns 0 or the CUDA error code.
-extern "C" int tmf_free_epoch(void* theta, void* phi, const void* u,
-                              const void* v, const void* r, const void* w,
-                              const void* gu, const void* gv, const void* ap_u,
-                              const void* ap_v, void* acc_u, void* acc_v,
-                              int nb, int sub, int tile_u, int tile_v,
-                              int lanes, int dim, int groups_u, int groups_v,
-                              int work, int mxu_pred, int saturate, float eta,
-                              float lam, float gb, float cap, void* stream) {
-  if (!valid_groups(groups_u) || !valid_groups(groups_v) || dim + 3 > lanes ||
-      sub <= 0 || nb <= 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  FreeArgs a{static_cast<float*>(theta), static_cast<float*>(phi),
-             static_cast<const int*>(u), static_cast<const int*>(v),
-             static_cast<const float*>(r), static_cast<const float*>(w),
-             static_cast<const int*>(gu), static_cast<const int*>(gv),
-             static_cast<const int*>(ap_u), static_cast<const int*>(ap_v),
-             static_cast<float*>(acc_u), static_cast<float*>(acc_v), nb, sub,
-             tile_u, tile_v, lanes, dim, 8 / groups_u, 8 / groups_v, saturate,
-             eta, gb, cap, logf(1.f - eta * lam)};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (work == 0) return run_epoch<false, false>(a, st);
-  if (mxu_pred) return run_epoch<true, true>(a, st);
-  return run_epoch<true, false>(a, st);
-}
-
 // One free-column epoch on the tile walk, in place on theta/phi, launched on
-// `stream`. u, v, r, w are tmf_free_epoch's; ap_u and ap_v (nb, 8) are the
-// walk's apply flags of the real columns (ops/tile_walk.py:
-// tile_apply_flags) for groups_u and groups_v; acc_v (phi's shape) must be
-// zero on entry and is zero again on return. `walk` is a
-// tile_walk::WalkLaunch of the plan's walk (its user tiles and item tiles
-// per column replace the plan's gu and gv; dtheta holds tile_u x lanes
-// floats per cluster, zero on entry and on return). Returns 0 or the CUDA
-// error code.
+// `stream`. The plan arrays u, v, r, w are (nb, 8, sub), one column
+// contiguous; ap_u and ap_v (nb, 8) are the walk's apply flags of the real
+// columns (ops/tile_walk.py: tile_apply_flags) for groups_u and groups_v;
+// acc_v (phi's shape) must be zero on entry and is zero again on return.
+// `walk` is a tile_walk::WalkLaunch of the plan's walk (its user tiles and
+// item tiles per column replace the plan's gu and gv; dtheta holds tile_u x
+// lanes floats per cluster, zero on entry and on return). Returns 0 or the
+// CUDA error code.
 extern "C" int tmf_free_walk(void* theta, void* phi, const void* u,
                              const void* v, const void* r, const void* w,
                              const void* ap_u, const void* ap_v, void* acc_v,
@@ -571,9 +363,8 @@ extern "C" int tmf_free_walk(void* theta, void* phi, const void* u,
   FreeArgs a{static_cast<float*>(theta), static_cast<float*>(phi),
              static_cast<const int*>(u), static_cast<const int*>(v),
              static_cast<const float*>(r), static_cast<const float*>(w),
-             nullptr, nullptr, static_cast<const int*>(ap_u),
-             static_cast<const int*>(ap_v), nullptr,
-             static_cast<float*>(acc_v), 0, sub, tile_u, tile_v, lanes, dim,
+             static_cast<const int*>(ap_u), static_cast<const int*>(ap_v),
+             static_cast<float*>(acc_v), sub, tile_u, tile_v, lanes, dim,
              8 / groups_u, 8 / groups_v, saturate, eta, gb, cap,
              logf(1.f - eta * lam)};
   const auto& l = *static_cast<const tile_walk::WalkLaunch*>(walk);

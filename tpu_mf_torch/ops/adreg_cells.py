@@ -25,18 +25,19 @@ summed. Everything between segments runs on the lambdas' device: the kernel
 reads them through a device pointer, and no segment waits for the host.
 
 ``adreg_segment`` launches the hand-written kernel ``csrc/adreg_cells.cu``
-on CUDA tensors, on the walk ``ops/tile_walk.py: tile_walk_route`` picks for
-the plan (the tile walk of each segment's units, or the grid walk), and
-runs the plain version ``adreg_segment_reference`` on CPU tensors. The
-fused runners keep no per-rating shadow tables (only the batched path
-does): ``state`` returns shadows that are copies of the params.
+on CUDA tensors, on the tile walk of each segment's units
+(``ops/tile_walk.py``: thread-block clusters ordered by ready counters per
+tile, the kernel's only walk), and runs the plain version
+``adreg_segment_reference`` on CPU tensors. The fused runners keep no
+per-rating shadow tables (only the batched path does): ``state`` returns
+shadows that are copies of the params.
 
 Spans (``train/metrics.py``, off unless turned on): per segment a
 ``tmf.adreg_segment`` (its validation rows gathered before the walk, and
-the walk; attributes ``segment`` and ``walk``; counts ``launches`` and
-``walk_tile`` / ``walk_grid``) and a ``tmf.hyper_step`` (the rows gathered
-after it and the step; count ``valid_rows``, K a step), both with device
-events on CUDA tensors; ``materialize`` in ``tmf.plan_upload``.
+the walk; attributes ``segment`` and ``walk``, "tile"; counts ``launches``
+and ``walk_tile``) and a ``tmf.hyper_step`` (the rows gathered after it
+and the step; count ``valid_rows``, K a step), both with device events on
+CUDA tensors; ``materialize`` in ``tmf.plan_upload``.
 """
 
 from __future__ import annotations
@@ -71,7 +72,6 @@ from tpu_mf_torch.ops.tile_walk import (
     WALKS,
     DeviceWalk,
     TileWalkCounters,
-    pick_walk,
     segment_walks,
     upload_walk,
     walk_launch,
@@ -140,7 +140,7 @@ def bind_adreg_lib(lib: ctypes.CDLL) -> ctypes.CDLL:
     """``lib``, a build of ``csrc/adreg_cells.cu``, with its entry points'
     argument types set."""
     fn = lib.tmf_adreg_segment
-    fn.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 11
+    fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 9
                    + [ctypes.c_float] * 2 + [ctypes.c_void_p] * 2)
     fn.restype = ctypes.c_int
     fn = lib.tmf_adreg_walk_clusters
@@ -156,10 +156,10 @@ def adreg_segment(theta: torch.Tensor, phi: torch.Tensor, plan: DevicePlan,
                   walk: DeviceWalk | None = None) -> None:
     """One AdaptReg segment (plan batches [b0, b1)), in place on the fused
     (theta_ext, phi_ext). CPU tensors take the plain version; CUDA tensors
-    launch ``csrc/adreg_cells.cu``, which reads the four lambdas (``lams``,
-    float32, on the card) when it runs, or raise: on the tile walk of
-    ``walk`` (the plan's ``DeviceWalk``, whose ranges include [b0, b1)), or
-    on the grid walk when ``walk`` is None."""
+    launch ``csrc/adreg_cells.cu`` on the tile walk of ``walk`` (the plan's
+    ``DeviceWalk``, whose ranges include [b0, b1); ValueError without it),
+    which reads the four lambdas (``lams``, float32, on the card) when it
+    runs, or raise."""
     if theta_groups not in GROUPS or phi_groups not in GROUPS:
         raise ValueError(f"groups must divide the 8 columns, got "
                          f"{theta_groups}/{phi_groups}")
@@ -177,46 +177,40 @@ def adreg_segment(theta: torch.Tensor, phi: torch.Tensor, plan: DevicePlan,
         return
     if theta.device.type != "cuda":
         raise ValueError(f"adreg_segment: no kernel for device {theta.device}")
+    if walk is None:
+        raise ValueError("adreg_segment: a CUDA launch needs the plan's "
+                         "tile walk")
     check_window_launch("adreg_segment", theta, phi, plan, phi_groups, dim,
                         (("lams", lams, torch.float32, (4,)),))
     lanes = theta.shape[1]
-    ap = plan.ap[phi_groups]
     acc = torch.zeros_like(phi)
     lib = _adreg_lib()
     with torch.cuda.device(theta.device):
-        launch = None
-        if walk is None:
-            d_theta = torch.zeros(plan.tile_u, lanes, dtype=torch.float32,
-                                  device=theta.device)
-        else:
-            launch, d_theta = walk_launch(
-                walk, b0, b1, phi_groups, ("adreg", WORK[work]),
-                lambda c, out: lib.tmf_adreg_walk_clusters(WORK[work], c,
-                                                           out),
-                plan.tile_u, lanes, theta.device)
+        launch, d_theta = walk_launch(  # d_theta: held through the launch
+            walk, b0, b1, phi_groups, ("adreg", WORK[work]),
+            lambda c, out: lib.tmf_adreg_walk_clusters(WORK[work], c, out),
+            plan.tile_u, lanes, theta.device)
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.tmf_adreg_segment(
             theta.data_ptr(), phi.data_ptr(), plan.u.data_ptr(),
             plan.v.data_ptr(), plan.r.data_ptr(), plan.w.data_ptr(),
-            plan.gu.data_ptr(), plan.gv.data_ptr(), ap.data_ptr(),
-            d_theta.data_ptr(), acc.data_ptr(), lams.data_ptr(), b0, b1, sub,
+            plan.gv.data_ptr(), acc.data_ptr(), lams.data_ptr(), sub,
             plan.tile_u, plan.tile_v, lanes, dim, theta_groups, phi_groups,
-            WORK[work], loss, eta, gb,
-            None if launch is None else ctypes.addressof(launch), stream)
+            WORK[work], loss, eta, gb, ctypes.addressof(launch), stream)
     if rc != 0:
         raise RuntimeError(f"adreg_cells kernel launch failed: CUDA error "
                            f"{rc}")
-    if launch is not None:
-        walk.counters.advance(launch.n_units, launch.n_clusters)
-    route = "grid" if walk is None else "tile"
+    walk.counters.advance(launch.n_units, launch.n_clusters)
     adreg_segment.launches += 1
-    adreg_segment.walks[route] += 1
+    adreg_segment.walks["tile"] += 1
     count("launches")
-    count(WALK_KEYS[route])
+    count(WALK_KEYS["tile"])
 
 
 adreg_segment.launches = 0  # kernel launches (CUDA calls), not CPU runs
-adreg_segment.walks = dict.fromkeys(WALKS, 0)  # the launches by walk
+# the launches by walk, every key of WALKS ("grid" stays 0: the kernel has
+# the tile walk only)
+adreg_segment.walks = dict.fromkeys(WALKS, 0)
 
 
 def hypergrad_ext_rows(new_t: torch.Tensor, new_p: torch.Tensor,
@@ -254,8 +248,8 @@ def adreg_segment_step(tables, lams: torch.Tensor, plan: DevicePlan, b0: int,
     """One segment and the step after it (``tpu_mf``'s
     ``_run_adreg_seg_step``): the validation rows of ``samples`` gathered
     from the segment-start tables, the segment (``adreg_segment``, in place
-    on ``tables``, on the tile walk of ``walk`` or the grid walk; its plain
-    version on any device with ``reference``), the rows gathered again, and
+    on ``tables``, on the tile walk of ``walk``; its plain version on any
+    device with ``reference``), the rows gathered again, and
     the hypergradient; returns the new lambdas. ``visits`` is the segment's
     user-visits (0-d). The two halves run in the spans
     ``tmf.adreg_segment`` and ``tmf.hyper_step`` of segment ``segment``
@@ -263,8 +257,7 @@ def adreg_segment_step(tables, lams: torch.Tensor, plan: DevicePlan, b0: int,
     theta, phi = tables
     uv, vv, rv = valid
     cuda = theta.device.type == "cuda"
-    with span("tmf.adreg_segment", cuda, segment=segment,
-              walk="grid" if walk is None else "tile"):
+    with span("tmf.adreg_segment", cuda, segment=segment, walk="tile"):
         su, sv, sr = uv[samples], vv[samples], rv[samples]
         old_t, old_p = theta[su], phi[sv]
         if reference:
@@ -361,25 +354,20 @@ class AdRegRunner:
                              generator=gen, device=self.device)
 
     def route(self, epoch_idx: int = 0) -> str:
-        """The walk the kernel takes on plan ``epoch_idx``'s segments
-        (``tile_walk_route``)."""
-        return self.materialize().walks[epoch_idx % len(self.plans)].route
+        """The walk the kernel takes on plan ``epoch_idx``'s segments: the
+        tile walk, its only one."""
+        return "tile"
 
     def epoch(self, tables, eta: float, eta_reg: float, key: int,
-              epoch_idx: int = 0, samples=None, reference: bool = False,
-              walk: str | None = None):
+              epoch_idx: int = 0, samples=None, reference: bool = False):
         """One epoch in place on the fused tables (returns them): per
         segment ``adreg_segment_step``; ``epoch_idx`` rotates the plans.
         The validation indices come from ``draw_samples(key, s)``, or from
         ``samples`` ((segments, K) indices) when given. ``reference`` runs
         the plain version on the runner's device (to hold the kernel to it
-        on the card); ``walk`` forces "tile" or "grid" (default: the
-        plan's ``route``)."""
+        on the card)."""
         idx = epoch_idx % len(self.plans)
         plan = self.materialize()._dev[idx]
-        dwalk = self.walks[idx]
-        if pick_walk(dwalk, walk) == "grid":
-            dwalk = None
         tg, pg = self.pick_theta_groups(eta), self.pick_phi_groups(eta)
         if samples is not None:
             samples = torch.as_tensor(samples).to(self.device, torch.int64)
@@ -391,7 +379,8 @@ class AdRegRunner:
             self.lams = adreg_segment_step(
                 tables, self.lams, plan, s * n, (s + 1) * n, self._valid, ks,
                 eta, eta_reg, self._visits[idx][s], self.gb, self.dim, tg, pg,
-                self.work_dtype, self.loss, reference, dwalk, segment=s)
+                self.work_dtype, self.loss, reference, self.walks[idx],
+                segment=s)
         type(self).launches += adreg_segment.launches - launched
         return tables
 

@@ -12,8 +12,9 @@ SGD-scale etas, so that staleness envelope binds as it does for SGD.
 
 The plans (plain or delta-striped, relabeled by the serpentine balance
 maps) are ``ops/sgd_slot.py``'s, bit for bit ``tpu_mf``'s; they become
-window plans through ``to_window_plan`` and run on
-``csrc/adreg_cells.cu``. An epoch is S = min(4, batches) segments with a
+window plans through ``to_window_plan`` and run on the tile walk of
+``csrc/adreg_cells.cu`` (the gen-1 runner's, ``ops/adreg_cells.py``). An
+epoch is S = min(4, batches) segments with a
 hypergradient step between them. The tables' rows are the relabeled ids,
 so the validation ids ride the same maps and the hypergradient reads the
 relabeled rows; ``trim`` inverts the maps.

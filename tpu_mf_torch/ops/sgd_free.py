@@ -32,10 +32,9 @@ statistics and ``free_eligible`` give ``tpu_mf``'s answers, bit for bit.
 The TPU's byte-plane id streams, its SMEM plan check and its ablations are
 layout or measurement and are not ported. ``free_epoch`` runs the
 hand-written CUDA kernel (``csrc/free_cells.cu``, one launch per epoch) on
-CUDA tensors, on the walk ``ops/tile_walk.py: tile_walk_route`` picks for
-the plan (the tile walk: units of columns on one user tile, one
-thread-block cluster each, ordered by ready counters per tile; or the grid
-walk), and the plain PyTorch version ``free_epoch_reference`` on CPU
+CUDA tensors, on its tile walk (``ops/tile_walk.py``: units of columns on
+one user tile, one thread-block cluster each, ordered by ready counters
+per tile), and the plain PyTorch version ``free_epoch_reference`` on CPU
 tensors.
 """
 
@@ -61,10 +60,8 @@ from tpu_mf_torch.ops.sgd_cells import (
     window_apply,
 )
 from tpu_mf_torch.ops.tile_walk import (
-    WALKS,
     DeviceWalk,
     TileWalkCounters,
-    pick_walk,
     plan_tile_walk,
     upload_walk,
     walk_launch,
@@ -221,9 +218,10 @@ def free_window_plan(plan: FreePlan) -> CellPlan:
 
 class FreeDevicePlan(NamedTuple):
     """One FreePlan on a device, columns contiguous: slot s of column k of
-    batch i is element [i, k, s]. ``ap_u`` / ``ap_v`` hold each side's
-    apply flags per grouping; the host copies drive the plain version's
-    loop without device reads. ``walk`` is the plan's tile walk."""
+    batch i is element [i, k, s]. ``ap_u_host`` / ``ap_v_host`` hold each
+    side's apply flags per grouping, and with the host tiles drive the
+    plain version's loop without device reads. ``walk`` is the plan's tile
+    walk, with the kernel's own flags."""
 
     u: torch.Tensor    # (NB, 8, B/8) int32 tile-local ids, sentinel tile_u
     v: torch.Tensor    # (NB, 8, B/8) int32
@@ -231,12 +229,10 @@ class FreeDevicePlan(NamedTuple):
     w: torch.Tensor    # (NB, 8, B/8) float32 {0, 1}
     gu: torch.Tensor   # (NB, 8) int32
     gv: torch.Tensor   # (NB, 8) int32
-    ap_u: dict         # {groups_u: (NB, 8) int32 user-side apply flags}
-    ap_v: dict         # {groups_v: (NB, 8) int32 item-side apply flags}
     gu_host: np.ndarray
     gv_host: np.ndarray
-    ap_u_host: dict
-    ap_v_host: dict
+    ap_u_host: dict    # {groups_u: (NB, 8) int32 user-side apply flags}
+    ap_v_host: dict    # {groups_v: (NB, 8) int32 item-side apply flags}
     tile_u: int
     tile_v: int
     n_gu: int
@@ -262,21 +258,17 @@ def upload_free_plan(plan: FreePlan, device: torch.device | str,
     def cols(a):
         return torch.as_tensor(a).to(device).transpose(1, 2).contiguous()
 
-    def dev(flags):
-        return {k: torch.as_tensor(a).to(device) for k, a in flags.items()}
-
     if counters is None:
         counters = TileWalkCounters(plan.n_gv, plan.n_gu, device)
     walk = upload_walk(plan_tile_walk(plan, 0, plan.gu.shape[0]), counters,
                        free_rows=plan.tile_u + plan.tile_v)
-    ap_u, ap_v = free_flags(plan.gu), free_flags(plan.gv)
     return FreeDevicePlan(
         u=cols(plan.u), v=cols(plan.v), r=cols(plan.r), w=cols(plan.w),
         gu=torch.as_tensor(plan.gu).to(device),
-        gv=torch.as_tensor(plan.gv).to(device), ap_u=dev(ap_u),
-        ap_v=dev(ap_v), gu_host=plan.gu, gv_host=plan.gv, ap_u_host=ap_u,
-        ap_v_host=ap_v, tile_u=plan.tile_u, tile_v=plan.tile_v,
-        n_gu=plan.n_gu, n_gv=plan.n_gv, walk=walk,
+        gv=torch.as_tensor(plan.gv).to(device), gu_host=plan.gu,
+        gv_host=plan.gv, ap_u_host=free_flags(plan.gu),
+        ap_v_host=free_flags(plan.gv), tile_u=plan.tile_u,
+        tile_v=plan.tile_v, n_gu=plan.n_gu, n_gv=plan.n_gv, walk=walk,
     )
 
 
@@ -373,10 +365,6 @@ def _free_lib() -> ctypes.CDLL:
 def bind_free_lib(lib: ctypes.CDLL) -> ctypes.CDLL:
     """``lib``, a build of ``csrc/free_cells.cu``, with its entry points'
     argument types set."""
-    fn = lib.tmf_free_epoch
-    fn.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 11
-                   + [ctypes.c_float] * 4 + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
     fn = lib.tmf_free_walk
     fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 10
                    + [ctypes.c_float] * 4 + [ctypes.c_void_p] * 2)
@@ -390,8 +378,9 @@ def bind_free_lib(lib: ctypes.CDLL) -> ctypes.CDLL:
 def check_free_launch(theta: torch.Tensor, phi: torch.Tensor,
                       plan: FreeDevicePlan, groups_u: int, groups_v: int,
                       dim: int, work: torch.dtype) -> None:
-    """Raise ValueError unless the groups, the working type, the tables and
-    the plan are what ``csrc/free_cells.cu`` takes: contiguous, of the right
+    """Raise ValueError unless the groups, the working type, the tables,
+    the plan (the tiles the plain version reads too) and its walk's apply
+    flags are what ``csrc/free_cells.cu`` takes: contiguous, of the right
     type and shape, on theta's device, the tables of the plan's tiles."""
     if groups_u not in GROUPS or groups_v not in GROUPS:
         raise ValueError(f"free_epoch: groups must divide the 8 columns, got "
@@ -408,8 +397,8 @@ def check_free_launch(theta: torch.Tensor, phi: torch.Tensor,
             ("w", plan.w, torch.float32, (nb, 8, sub)),
             ("gu", plan.gu, torch.int32, (nb, 8)),
             ("gv", plan.gv, torch.int32, (nb, 8)),
-            ("ap_u", plan.ap_u[groups_u], torch.int32, (nb, 8)),
-            ("ap_v", plan.ap_v[groups_v], torch.int32, (nb, 8))):
+            ("tap_u", plan.walk.tap_u[groups_u], torch.int32, (nb, 8)),
+            ("tap", plan.walk.tap[groups_v], torch.int32, (nb, 8))):
         if (t.device != theta.device or not t.is_contiguous()
                 or t.dtype != dtype or (shape and t.shape != shape)):
             raise ValueError(f"free_epoch: {name} must be a contiguous "
@@ -426,12 +415,12 @@ def free_epoch(theta: torch.Tensor, phi: torch.Tensor, plan: FreeDevicePlan,
                eta: float, lam: float, gb: float, cap: float, dim: int,
                groups_u: int, groups_v: int,
                work: torch.dtype = torch.bfloat16, saturate: bool = True,
-               mxu_pred: bool = True, walk: str | None = None) -> None:
+               mxu_pred: bool = True) -> None:
     """One free-column epoch, in place on the fused (theta_ext, phi_ext).
 
     CPU tensors take the plain version; CUDA tensors launch the
-    ``csrc/free_cells.cu`` kernel (one launch per epoch) or raise, on the
-    walk ``walk`` forces ("tile" or "grid"; default: the plan's route)."""
+    ``csrc/free_cells.cu`` kernel on the plan's tile walk (one launch per
+    epoch) or raise."""
     check_free_launch(theta, phi, plan, groups_u, groups_v, dim, work)
     if theta.device.type == "cpu":
         free_epoch_reference(theta, phi, plan, eta, lam, gb, cap, dim,
@@ -439,48 +428,32 @@ def free_epoch(theta: torch.Tensor, phi: torch.Tensor, plan: FreeDevicePlan,
         return
     if theta.device.type != "cuda":
         raise ValueError(f"free_epoch: no kernel for device {theta.device}")
-    route = pick_walk(plan.walk, walk)
     nb, _, sub = plan.u.shape
     lanes = theta.shape[1]
     acc_v = torch.zeros_like(phi)
     lib = _free_lib()
+    dw = plan.walk
     with torch.cuda.device(theta.device):
         stream = torch.cuda.current_stream().cuda_stream
-        if route == "grid":
-            acc_u = torch.zeros_like(theta)
-            rc = lib.tmf_free_epoch(
-                theta.data_ptr(), phi.data_ptr(), plan.u.data_ptr(),
-                plan.v.data_ptr(), plan.r.data_ptr(), plan.w.data_ptr(),
-                plan.gu.data_ptr(), plan.gv.data_ptr(),
-                plan.ap_u[groups_u].data_ptr(),
-                plan.ap_v[groups_v].data_ptr(), acc_u.data_ptr(),
-                acc_v.data_ptr(), nb, sub, plan.tile_u, plan.tile_v, lanes,
-                dim, groups_u, groups_v, WORK[work], int(mxu_pred),
-                int(saturate), eta, lam, gb, cap, stream)
-        else:
-            dw = plan.walk
-            launch, d_theta = walk_launch(
-                dw, 0, nb, groups_v, ("free", WORK[work], int(mxu_pred)),
-                lambda c, out: lib.tmf_free_walk_clusters(
-                    WORK[work], int(mxu_pred), c, out),
-                plan.tile_u, lanes, theta.device)
-            rc = lib.tmf_free_walk(
-                theta.data_ptr(), phi.data_ptr(), plan.u.data_ptr(),
-                plan.v.data_ptr(), plan.r.data_ptr(), plan.w.data_ptr(),
-                dw.tap_u[groups_u].data_ptr(), dw.tap[groups_v].data_ptr(),
-                acc_v.data_ptr(), sub, plan.tile_u, plan.tile_v, lanes, dim,
-                groups_u, groups_v, WORK[work], int(mxu_pred), int(saturate),
-                eta, lam, gb, cap, ctypes.addressof(launch), stream)
+        launch, d_theta = walk_launch(  # d_theta: held through the launch
+            dw, 0, nb, groups_v, ("free", WORK[work], int(mxu_pred)),
+            lambda c, out: lib.tmf_free_walk_clusters(
+                WORK[work], int(mxu_pred), c, out),
+            plan.tile_u, lanes, theta.device)
+        rc = lib.tmf_free_walk(
+            theta.data_ptr(), phi.data_ptr(), plan.u.data_ptr(),
+            plan.v.data_ptr(), plan.r.data_ptr(), plan.w.data_ptr(),
+            dw.tap_u[groups_u].data_ptr(), dw.tap[groups_v].data_ptr(),
+            acc_v.data_ptr(), sub, plan.tile_u, plan.tile_v, lanes, dim,
+            groups_u, groups_v, WORK[work], int(mxu_pred), int(saturate),
+            eta, lam, gb, cap, ctypes.addressof(launch), stream)
     if rc != 0:
         raise RuntimeError(f"free_cells kernel launch failed: CUDA error {rc}")
-    if route == "tile":
-        plan.walk.counters.advance(launch.n_units, launch.n_clusters)
+    dw.counters.advance(launch.n_units, launch.n_clusters)
     free_epoch.launches += 1
-    free_epoch.walks[route] += 1
 
 
 free_epoch.launches = 0  # kernel launches (CUDA calls), not CPU runs
-free_epoch.walks = dict.fromkeys(WALKS, 0)  # the launches by walk
 
 
 class FreeEpochRunner(WindowRunner):
@@ -495,9 +468,8 @@ class FreeEpochRunner(WindowRunner):
     - ``mxu_pred`` (default on) rounds t*p before the row sum;
     - ``n_plans`` > 1 rotates plans of seeds seed + 7919 p;
     - each plan's tile walk is built at ``materialize`` on one set of
-      counters (``TileWalkCounters``), and ``epoch`` takes the plan's route
-      unless ``walk`` forces one; ``last_walk`` names the walk the last
-      epoch on the card took.
+      counters (``TileWalkCounters``), and every epoch on the card runs
+      on it.
 
     The TPU's ``interpret`` and ``ablate`` options are not taken."""
 
@@ -524,7 +496,6 @@ class FreeEpochRunner(WindowRunner):
                          device, map_u=map_u, map_v=map_v)
         self._mxu_pred = self.mxu_pred = mxu_pred
         self._counters: TileWalkCounters | None = None
-        self.last_walk: str | None = None
 
     def _dups(self, plan, side: str) -> dict:
         if side == "u":
@@ -542,23 +513,19 @@ class FreeEpochRunner(WindowRunner):
         return self
 
     def route(self, epoch_idx: int = 0) -> str:
-        """The walk the kernel takes on plan ``epoch_idx``
-        (``tile_walk_route``)."""
-        return self.materialize()._dev[epoch_idx % len(self._dev)].walk.route
+        """The walk the kernel takes on plan ``epoch_idx``: the tile walk,
+        its only one."""
+        return "tile"
 
     def epoch(self, tables, eta: float, lam: float, gb: float,
-              epoch_idx: int = 0, walk: str | None = None):
-        """One epoch, in place on the fused tables; returns them. ``walk``
-        forces "tile" or "grid" on the card (default: the plan's
-        ``route``)."""
+              epoch_idx: int = 0):
+        """One epoch, in place on the fused tables; returns them."""
         cap = max(1.0, 0.2 / max(eta, 1e-9))
         plan = self.materialize()._dev[epoch_idx % len(self._dev)]
         launched = free_epoch.launches
         free_epoch(tables[0], tables[1], plan, eta, lam, gb, cap, self.dim,
                    self.pick_theta_groups(eta), self.pick_phi_groups(eta),
-                   self.work_dtype, self.saturate, self.mxu_pred, walk)
-        if free_epoch.launches != launched:
-            self.last_walk = pick_walk(plan.walk, walk)
+                   self.work_dtype, self.saturate, self.mxu_pred)
         type(self).launches += free_epoch.launches - launched
         return tables
 

@@ -74,6 +74,7 @@ from tpu_mf_torch.ops.tile_walk import (
     item_noise_ranges,
     pick_walk,
     plan_tile_walk,
+    routed,
     upload_walk,
     walk_launch,
 )
@@ -576,7 +577,7 @@ class SgldCellRunner(SgldRunner):
         touch = [torch.as_tensor(a).to(self.device) for a in lists]
         return SgldCellPlan(upload_plan(plan, self.device),
                             torch.as_tensor(cum).to(self.device), cum, *touch,
-                            upload_walk(walk, self._counters, nz=nz))
+                            routed(upload_walk(walk, self._counters, nz=nz)))
 
     def epoch(self, tables, state_gcount: int, hyper: Hyper,
               noise_seed: int, epoch_idx: int = 0, walk: str | None = None):

@@ -74,6 +74,7 @@ from tpu_mf_torch.ops.tile_walk import (
     DeviceWalk,
     pick_walk,
     plan_tile_walk,
+    routed,
     tile_apply_flags,
     upload_walk,
 )
@@ -310,7 +311,7 @@ class SlotSgldRunner(SgldRunner):
             upload_plan(wp, self.device),
             torch.as_tensor(cum).to(self.device), cum,
             torch.as_tensor(ap).to(self.device), ap,
-            upload_walk(walk, self._counters, tap={1: tap}))
+            routed(upload_walk(walk, self._counters, tap={1: tap})))
 
     def epoch(self, tables, state_gcount: int, hyper: Hyper,
               noise_seed: int, epoch_idx: int = 0,

@@ -1,7 +1,10 @@
 """The tile walk of the window-plan kernels ``csrc/cell_sgd.cu``,
 ``csrc/adreg_cells.cu`` and ``csrc/sgld_cells.cu`` and of the free-column
-kernel ``csrc/free_cells.cu``: the host planner, the hand-off counters and
-the route between the tile walk and the grid walk.
+kernel ``csrc/free_cells.cu``: the host planner, the hand-off counters and,
+for the two kernels that keep a grid walk beside it (``csrc/cell_sgd.cu``
+and ``csrc/sgld_cells.cu``), the route between the two walks. The
+AdaptReg and free-column kernels have the tile walk only: their
+``DeviceWalk`` reads route "tile".
 
 A window plan's batches are sorted by user tile, and one window (a step of
 ``window`` columns of one batch) reads and writes only its user tile and
@@ -9,7 +12,7 @@ the item tiles of its columns. A free-column plan gives every column its
 own user tile, but deals its columns in cell order, user tile first, so
 each user tile is one run of columns there. So a window depends on two
 kinds of earlier windows: the last one on its user tile and, per item tile
-it touches, the last one on that item tile. The grid walk runs the
+it touches, the last one on that item tile. A grid walk runs the
 windows one after another, each ending in two grid syncs. The tile walk
 runs **units**, the maximal runs of consecutive real columns on one user
 tile (columns without a real slot, w = 0 in every slot, are dropped: they
@@ -39,8 +42,9 @@ units, as ``upload_window_walks`` does for ``csrc/cell_sgd.cu``, whose
 window width follows the groupings eta picks), ``cluster_size`` sizes its
 clusters by the slots of a window (``free_cluster_size`` those of a free
 plan, ``cell_cluster_size`` those of ``csrc/cell_sgd.cu``, by a model of
-the walk's time), ``tile_walk_route`` picks the walk by a model of both
-walks' time, and ``TileWalkCounters`` numbers the launches on one device.
+the walk's time), ``tile_walk_route`` picks the walk of a kernel with two
+by a model of both walks' time, and ``TileWalkCounters`` numbers the
+launches on one device.
 
 Windows of a free plan may span two units (a user tile's run ends inside a
 window). That is exact: a unit applies a tile where its flag
@@ -59,7 +63,8 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-# the walks of the window-plan and free-column kernels
+# the walks of csrc/cell_sgd.cu and csrc/sgld_cells.cu (and the keys of
+# every kernel's launch counts by walk)
 WALKS = ("tile", "grid")
 # blocks per thread-block cluster: one unit's window steps spread over this
 # many SMs. 8 (the portable most; 16 clusters fit an H100 at once) where a
@@ -318,26 +323,27 @@ def walk_steps(walk: TileWalk, cluster: int, sms: int = H100_SMS) -> int:
 
 
 def tile_walk_route(walks, cluster: int | None = None,
-                    sms: int = H100_SMS, fixed: int = TILE_STEP_ROUNDS,
-                    rows: int = 0, grid_windows: int | None = None,
+                    sms: int = H100_SMS, rows: int = 0,
+                    grid_windows: int | None = None,
                     grid_rows: int = 0) -> str:
-    """The walk a plan takes on the card, by a model of each walk's time
-    in rounds of a warp's slots: the tile walk runs ``walk_steps`` windows
-    one after another, each a fixed ``fixed`` rounds plus its slots (and
-    ``rows`` applied rows) over the 32 warps of each of a cluster's
-    ``cluster`` blocks; the grid walk runs every window (``grid_windows``
+    """The walk a plan takes on the card in a kernel with both walks, by a
+    model of each walk's time in rounds of a warp's slots: the tile walk
+    runs ``walk_steps`` windows one after another, each a fixed
+    ``TILE_STEP_ROUNDS`` plus its slots (and ``rows`` applied rows) over the
+    32 warps of each of a cluster's ``cluster`` blocks; the grid walk runs every window (``grid_windows``
     where it also steps through the windows that hold no real slot), each
     ``GRID_STEP_ROUNDS`` plus its slots (and ``grid_rows`` applied rows)
     over one block of 32 warps on each of ``sms`` SMs. "tile" where the
     first is the shorter, else "grid"; summed over the launch ranges of
     ``walks`` (a ``TileWalk`` or a list of them). At ML-10M shape the
-    gen-1 plans' chains shrink 8-16x and the tile walk wins ~4.6x; a slot
-    SGLD window of 28,672 slots keeps a cluster of 16 busy for 56 rounds,
-    and the grid walk wins. ``cluster`` defaults to ``cluster_size``."""
+    gen-1 plans' chains shrink 8-16x and the tile walk wins; a slot SGLD
+    window of 28,672 slots keeps a cluster of 16 busy for 56 rounds, and
+    the grid walk wins. ``cluster`` defaults to ``cluster_size``."""
     if isinstance(walks, TileWalk):
         walks = [walks]
     cluster = cluster or cluster_size(walks)
-    tile = sum(tile_rounds(w, cluster, sms, fixed, rows) for w in walks)
+    tile = sum(tile_rounds(w, cluster, sms, TILE_STEP_ROUNDS, rows)
+               for w in walks)
     warps = 32 * sms
     grid = sum((w.n_windows if grid_windows is None else grid_windows)
                * (GRID_STEP_ROUNDS + -(-w.slots // warps)
@@ -387,7 +393,7 @@ class DeviceWalk(NamedTuple):
     walks: list                    # the host TileWalks
     unit_off: list                 # host offsets of each range's units
     cluster: int                   # blocks per cluster (cluster_size)
-    route: str
+    route: str                     # "tile", or routed (``routed``)
     counters: "TileWalkCounters"   # shared by the runner's plans
     tap_u: Optional[dict] = None   # a free plan's user-side apply flags
 
@@ -408,13 +414,13 @@ def device_sms(device: torch.device) -> int:
 def upload_walk(walks, counters: "TileWalkCounters", tap: dict | None = None,
                 nz=None, free_rows: int | None = None) -> DeviceWalk:
     """The ``TileWalk``s of one plan (a list, or one) on the device of
-    ``counters``, routed for that device's SMs (an H100's on the CPU);
-    ``tap`` defaults to the real columns' apply flags at every phi
+    ``counters``, on route "tile" (``routed`` routes a kernel with two
+    walks); ``tap`` defaults to the real columns' apply flags at every phi
     grouping. ``free_rows`` marks a free plan's walk (one range), whose
     window steps apply that many rows: its user-side flags (``tap_u``) are
-    uploaded too, and ``free_cluster_size`` sizes its clusters."""
+    uploaded too, and ``free_cluster_size`` sizes its clusters for the
+    device's SMs (an H100's on the CPU)."""
     device = counters.counters.device
-    sms = device_sms(device)
     if isinstance(walks, TileWalk):
         walks = [walks]
     first = walks[0]
@@ -433,21 +439,27 @@ def upload_walk(walks, counters: "TileWalkCounters", tap: dict | None = None,
     tap_u = None
     if free_rows is None:
         cluster = cluster_size(walks)
-        route = tile_walk_route(walks, sms=sms)
     else:
         if len(walks) != 1:
             raise ValueError("a free plan's walk has one launch range")
         users = walk_user_tiles(first)
         tap_u = {g: dev(tile_apply_flags(users, g)) for g in (1, 2, 4, 8)}
-        cluster = free_cluster_size(first, free_rows, sms)
-        route = tile_walk_route(walks, cluster, sms,
-                                FREE_STEP_ROUNDS[cluster], free_rows)
+        cluster = free_cluster_size(first, free_rows, device_sms(device))
     return DeviceWalk(
         cat("unit_c0"), cat("unit_c1"), cat("unit_gu"), cat("unit_wait"),
         dev(first.col_tile), dev(col_wait), dev(col_rel),
         {g: dev(a) for g, a in tap.items()},
         None if nz is None else tuple(dev(a) for a in nz), list(walks),
-        [int(x) for x in off], cluster, route, counters, tap_u)
+        [int(x) for x in off], cluster, "tile", counters, tap_u)
+
+
+def routed(walk: DeviceWalk) -> DeviceWalk:
+    """``walk`` on the route ``tile_walk_route`` gives its ranges at its
+    cluster size for its counters' device (an H100's SMs on the CPU): the
+    walk of a kernel that keeps both (``csrc/sgld_cells.cu``)."""
+    sms = device_sms(walk.counters.counters.device)
+    return walk._replace(route=tile_walk_route(walk.walks, walk.cluster,
+                                               sms))
 
 
 def cell_cluster_size(walk: TileWalk, rows: int,
